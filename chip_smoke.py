@@ -7,9 +7,15 @@ against its plain PyTorch twin at the shapes the production frame gives
 it, then serves 3 frames of a 960x1280 pair at 128 disparities through
 `stereomatch_tpu_torch.serving.compile_sgbm_mst_server`, with the guided
 and the raw cost volume, and gates the LR-checked left maps on the
-scene's exact ground truth. Fails (non-zero exit, no result line) on any
-fault, and when no CUDA device is present. The last stdout line is
-{"ok": true, "device": {...}}; the line before it lists the kernels.
+scene's exact ground truth. Then the video path at the same size, through
+`compile_mst_video_server`: the headline deployment (raw volume,
+`reuse_forest`, `reseed_every=3`, scene cuts armed) on a 6-frame moving
+sequence, the guided rebuild-per-frame server on 3 frames, and one hard
+cut (the mirrored scene), whose replay must equal a fresh keyframe. Every
+path's K1 / K2 launches are counted and held to its frame mix. Fails
+(non-zero exit, no result line) on any fault, and when no CUDA device is
+present. The last stdout line is {"ok": true, "device": {...}}; the line
+before it lists the kernels.
 """
 
 from __future__ import annotations
@@ -28,8 +34,16 @@ MAX_DISP = 128
 FRAMES = 3
 SCENE_SEED = 0
 DEVICE = "cuda"
+VIDEO_FRAMES = 6
+RESEED_EVERY = 3
 # GT gates of tests/test_mst_seeded.py (production-config test)
 GATES = {"valid": 0.35, "epe": 1.2, "bad2": 0.08}
+# temporal frames absorb one frame of motion (tests/test_mst_video.py:96-98)
+TEMPORAL_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.08}
+# K1 / K2 launches per keyframe (2 views x (1 + 4 iterations) x 4 scans)
+# and per temporal frame at 2 iterations (2 x (1 + 2) x 4)
+KEY_LAUNCHES = {"K1": 8, "K2": 40}
+TEMPORAL_LAUNCHES = {"K1": 0, "K2": 24}
 # modules of the JAX package the port itself imports (through its config.py
 # and synthetic.py): plain dataclasses and numpy
 FRAMEWORK_FREE = {"stereomatch_tpu", "stereomatch_tpu.config", "stereomatch_tpu.synthetic"}
@@ -51,7 +65,126 @@ def cuda_time_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def gate(dl, dr, scene, gates, tag):
+    """LR-check the left map and hold it to the scene's exact GT."""
+    from stereomatch_tpu_torch.eval import disparity_metrics
+    from stereomatch_tpu_torch.ops.postprocess import lr_consistency
+    from stereomatch_tpu_torch.synthetic import scene_eval_mask
+
+    if dl.shape != SHAPE or dr.shape != SHAPE or not (
+            np.isfinite(dl).all() and np.isfinite(dr).all()):
+        raise AssertionError(f"{tag}: bad output shape or non-finite values")
+    dlc, valid = lr_consistency(torch.from_numpy(dl), torch.from_numpy(dr),
+                                float(MAX_DISP), fill=False)
+    scored = valid & torch.from_numpy(scene_eval_mask(scene))
+    mm = disparity_metrics(dlc, torch.from_numpy(scene.disp_left), scored)
+    share = scored.double().mean().item()
+    msg = f"valid {share:.3f}, epe {mm['epe']:.3f}, bad2 {mm['bad2']:.4f}"
+    if not (share > gates["valid"] and mm["epe"] < gates["epe"] and mm["bad2"] < gates["bad2"]):
+        raise AssertionError(f"{tag} misses the GT gates {gates}: {msg}")
+    return msg
+
+
+def counted(run):
+    """Run one path with both launch counters set to 0 just before it;
+    returns (its result, the counts just after it)."""
+    from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum
+    from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
+
+    aggregate_8path_cuda.launches = 0
+    segmented_cumsum.launches = 0
+    out = run()
+    return out, {"K1": aggregate_8path_cuda.launches, "K2": segmented_cumsum.launches}
+
+
+def expect_launches(tag, got, keys, temporals):
+    want = {k: keys * KEY_LAUNCHES[k] + temporals * TEMPORAL_LAUNCHES[k] for k in got}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want} "
+                             f"for {keys} keyframes and {temporals} temporal frames")
+    log(f"{tag}: launches {got} = {keys} keyframes + {temporals} temporal frames")
+
+
+def serve_video(srv, scenes):
+    """Serve `scenes` one frame at a time; per frame (maps, seconds, keyframe?)."""
+    out = []
+    for sc in scenes:
+        t0 = time.perf_counter()
+        t = srv.submit_pair(sc.left, sc.right)
+        is_key = srv._queue[-1].is_key
+        dl, dr = srv.collect(t)
+        out.append((dl, dr, time.perf_counter() - t0, is_key))
+    return out
+
+
+def video_path(cfg, dev) -> dict:
+    """The video server at full width; returns each path's launch counts."""
+    from stereomatch_tpu_torch.serving import compile_mst_video_server
+    from stereomatch_tpu_torch.synthetic import render_sequence
+
+    h, w = SHAPE
+    t_video = time.perf_counter()
+    t0 = time.perf_counter()
+    seq = render_sequence(SCENE_SEED, VIDEO_FRAMES, h, w, MAX_DISP)
+    log(f"render: {time.perf_counter() - t0:.1f} s ({VIDEO_FRAMES} frames, drift 2.0 px/frame)")
+    headline = dict(cfg=cfg, device=dev, reuse_forest=True, volume_guided=False)
+    servers = {
+        "video_headline": compile_mst_video_server(
+            h, w, reseed_every=RESEED_EVERY, scene_cut_ratio=0.6, **headline),
+        "video_guided_rebuild": compile_mst_video_server(h, w, cfg=cfg, device=dev),
+        "video_cut": compile_mst_video_server(h, w, scene_cut_ratio=0.6, **headline),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    for name, scenes in (("video_headline", seq), ("video_guided_rebuild", seq[:3])):
+        srv = servers[name]
+        frames, launches[name] = counted(lambda: serve_video(srv, scenes))
+        for i, (dl, dr, sec, is_key) in enumerate(frames):
+            kind = "keyframe" if is_key else "temporal"
+            msg = gate(dl, dr, scenes[i], GATES if is_key else TEMPORAL_GATES,
+                       f"{name} frame {i} ({kind})")
+            log(f"{name} frame {i}: {kind}, {sec:.3f} s, {msg}")
+        if srv.scene_cuts:
+            raise AssertionError(f"{name}: {srv.scene_cuts} scene cuts on a smooth sequence")
+        kinds = [f[3] for f in frames]
+        want = [i % RESEED_EVERY == 0 if name == "video_headline" else i == 0
+                for i in range(len(scenes))]
+        if kinds != want:
+            raise AssertionError(f"{name}: keyframes at {kinds}, expected {want}")
+        expect_launches(name, launches[name], sum(kinds), len(kinds) - sum(kinds))
+
+    # one hard cut: the mirrored scene after scene 0
+    srv = servers["video_cut"]
+    sc0 = seq[0]
+    cut_l, cut_r = sc0.left[:, ::-1].copy(), sc0.right[:, ::-1].copy()
+
+    def cut_run():
+        t0 = time.perf_counter()
+        ta = srv.submit_pair(sc0.left, sc0.right, seed=0)
+        tb = srv.submit_pair(cut_l, cut_r, seed=1)
+        srv.collect(ta)
+        out = srv.collect(tb)
+        return out, time.perf_counter() - t0
+
+    ((cl, cr), sec), launches["video_cut"] = counted(cut_run)
+    if srv.scene_cuts != 1:
+        raise AssertionError(f"the mirrored scene fired {srv.scene_cuts} scene cuts, not 1")
+    expect_launches("video_cut", launches["video_cut"], 2, 1)  # key, temporal, replay
+    fresh = compile_mst_video_server(h, w, **headline)
+    fl, fr = fresh.collect(fresh.submit_pair(cut_l, cut_r, seed=1))
+    same = min(float(np.mean(np.abs(cl - fl) <= 0.5)), float(np.mean(np.abs(cr - fr) <= 0.5)))
+    if not same > 0.99:
+        raise AssertionError(f"the replayed cut frame equals a fresh keyframe on {same:.4f} of pixels")
+    log(f"video_cut: 1 scene cut in {sec:.3f} s (2 frames); the replayed frame equals a fresh "
+        f"keyframe within 0.5 px on {same:.5f} of pixels")
+    log(f"video: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"section wall time {time.perf_counter() - t_video:.1f} s")
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -60,8 +193,7 @@ def main() -> int:
 
     from stereomatch_tpu_torch._build import load_kernels
     from stereomatch_tpu_torch.config import production_mst_config
-    from stereomatch_tpu_torch.eval import disparity_metrics
-    from stereomatch_tpu_torch.synthetic import render_sequence, scene_eval_mask
+    from stereomatch_tpu_torch.synthetic import render_sequence
     from stereomatch_tpu_torch.models.mst import _fused_capacities
     from stereomatch_tpu_torch.models.sgbm_mst import (
         _default_sgbm_cfg, _gray_from_bgr, _seed_pair, _view_forest,
@@ -69,7 +201,6 @@ def main() -> int:
     )
     from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
     from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum, segmented_cumsum_twin
-    from stereomatch_tpu_torch.ops.postprocess import lr_consistency
     from stereomatch_tpu_torch.ops.sgbm import aggregate_8path, sgbm_cost_volume
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
     from stereomatch_tpu_torch import random as trandom
@@ -158,34 +289,25 @@ def main() -> int:
     }
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    aggregate_8path_cuda.launches = 0
-    segmented_cumsum.launches = 0
     frame_s = {}
     outputs = {}
-    for mode, srv in servers.items():
-        frame_s[mode] = []
-        for i, sc in enumerate(scenes):
-            t0 = time.perf_counter()
-            outputs[(mode, i)] = srv.collect(srv.submit_pair(sc.left, sc.right))
-            frame_s[mode].append(time.perf_counter() - t0)
-    launches = {"K1": aggregate_8path_cuda.launches, "K2": segmented_cumsum.launches}
+
+    def serve_fused():
+        for mode, srv in servers.items():
+            frame_s[mode] = []
+            for i, sc in enumerate(scenes):
+                t0 = time.perf_counter()
+                outputs[(mode, i)] = srv.collect(srv.submit_pair(sc.left, sc.right))
+                frame_s[mode].append(time.perf_counter() - t0)
+
+    _, launches = counted(serve_fused)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for (mode, i), (dl, dr) in outputs.items():
-        if dl.shape != SHAPE or dr.shape != SHAPE or not (
-                np.isfinite(dl).all() and np.isfinite(dr).all()):
-            raise AssertionError(f"{mode} frame {i}: bad output shape or non-finite values")
-        dlc, valid = lr_consistency(torch.from_numpy(dl), torch.from_numpy(dr),
-                                    float(MAX_DISP), fill=False)
-        scored = valid & torch.from_numpy(scene_eval_mask(scenes[i]))
-        mm = disparity_metrics(dlc, torch.from_numpy(scenes[i].disp_left), scored)
-        share = scored.double().mean().item()
-        log(f"{mode} frame {i}: {frame_s[mode][i]:.3f} s, valid {share:.3f}, "
-            f"epe {mm['epe']:.3f}, bad2 {mm['bad2']:.4f}")
-        if not (share > GATES["valid"] and mm["epe"] < GATES["epe"]
-                and mm["bad2"] < GATES["bad2"]):
-            raise AssertionError(f"{mode} frame {i} misses the GT gates {GATES}: {mm}")
-    log(f"launches on the main path: {launches}; peak device memory {peak_gb:.2f} GB")
+        msg = gate(dl, dr, scenes[i], GATES, f"{mode} frame {i}")
+        log(f"{mode} frame {i}: {frame_s[mode][i]:.3f} s, {msg}")
+    expect_launches("fused server", launches, 2 * FRAMES, 0)
+    log(f"launches on the fused server path: {launches}; peak device memory {peak_gb:.2f} GB")
     for mode, ts in frame_s.items():
         log(f"{mode}: seconds per frame {['%.3f' % t for t in ts]}, "
             f"steady {len(ts[1:]) / sum(ts[1:]):.3f} frames/s")
@@ -212,15 +334,20 @@ def main() -> int:
     stage("refine_left", lambda: _refine_view_given_forest(
         raw, vl, seed_l, kl, cfg, h, w, tmax, 4, 2.0, 2))
     log("stages_ms " + json.dumps(stages))
+    del vl, vr, seed_l, raw
+    by_path = {"fused_server": launches, **video_path(cfg, dev)}
 
     # the port shares only the JAX package's framework-free modules
     from_jax_pkg = {m for m in sys.modules if m.split(".")[0] == "stereomatch_tpu"}
     if "jax" in sys.modules or from_jax_pkg - FRAMEWORK_FREE:
         raise AssertionError(f"jax or a jax module was imported: {sorted(from_jax_pkg)}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{k} was not launched on the main path")
-        kernels[k]["launches"] = n
+    for k in ("K1", "K2"):
+        counts = {path: c[k] for path, c in by_path.items()}
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"{k} was not launched on every path: {counts}")
+        kernels[k]["launches"] = sum(counts.values())
+        kernels[k]["launches_by_path"] = counts
+    log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": [kernels["K1"], kernels["K2"]]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""3DMST model helpers (port of the parts of `stereomatch_tpu/models/mst.py`
-that the SGBM-seeded server runs)."""
+"""3DMST model entries and helpers (port of the parts of
+`stereomatch_tpu/models/mst.py` that the SGBM-seeded compositions run)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,19 @@ from typing import NamedTuple
 import torch
 
 from ..config import MSTConfig
-from ..ops.mst import aggregation_norm_inv, label_cost, tree_filter
+from .. import random as trandom
+from ..ops.mst import (
+    ForestArrays,
+    aggregation_norm_inv,
+    label_cost,
+    labels_to_disparity,
+    mst_pms_optimize,
+    plane_labels_from_disparity,
+    tree_filter,
+)
+from ..ops.postprocess import lr_consistency
 
-__all__ = ["MSTOutput"]
+__all__ = ["MSTOutput", "build_view_forest", "mst_stereo_seeded"]
 
 
 class MSTOutput(NamedTuple):
@@ -41,6 +51,14 @@ def _apply_smoothness(disp: torch.Tensor, bgr, cfg: MSTConfig) -> torch.Tensor:
     )
 
 
+def _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg: MSTConfig) -> MSTOutput:
+    """Smoothness prior on both maps, then the LR check of the left one."""
+    disp_l = _apply_smoothness(disp_l, left_bgr, cfg)
+    disp_r = _apply_smoothness(disp_r, right_bgr, cfg)
+    disp_l_checked, valid = lr_consistency(disp_l, disp_r, float(cfg.max_disp), fill=False)
+    return MSTOutput(disp_l_checked, disp_r, valid)
+
+
 def _seed_min_cost(vol, a0, b0, c0, fa, cfg: MSTConfig) -> torch.Tensor:
     """True aggregated cost of the seed labels, so the seed is sticky
     against the optimizer's per-pixel min updates."""
@@ -48,3 +66,63 @@ def _seed_min_cost(vol, a0, b0, c0, fa, cfg: MSTConfig) -> torch.Tensor:
     if cfg.normalize_aggregation:
         mc0 = mc0 * aggregation_norm_inv(fa, cfg.carry_iters)
     return mc0
+
+
+def build_view_forest(bgr, cfg: MSTConfig, device: torch.device | str = "cpu") -> ForestArrays:
+    """The forest of one view on `device`: median prefilter, L1 colour edge
+    weights and the device forest, at the tree capacity of
+    _fused_capacities, its capacities checked. Only
+    cfg.forest_backend="device" is ported."""
+    if cfg.forest_backend == "host":
+        raise NotImplementedError(
+            "forest_backend='host' is not ported yet (ROADMAP.md queue 1: host forest path)"
+        )
+    if cfg.forest_backend != "device":
+        raise ValueError(f"forest_backend must be 'host' or 'device', got {cfg.forest_backend!r}")
+    from ..ops.device_forest import device_forest_arrays
+    from .sgbm_mst import _view_forest
+
+    img = torch.as_tensor(bgr, dtype=torch.float32).to(device)
+    h, w = img.shape[0], img.shape[1]
+    tmax, adj_cap = _fused_capacities(h, w, cfg)
+    return device_forest_arrays(_view_forest(img, cfg, tmax, adj_cap), h, w, tmax, check=False)
+
+
+def mst_stereo_seeded(
+    left_bgr,
+    right_bgr,
+    left_vol,
+    right_vol,
+    seed_disp_l,
+    seed_disp_r,
+    cfg: MSTConfig = MSTConfig(),
+    seed: int = 0,
+    fine_iterations: int | None = None,
+    refine_start: float | None = 2.0,
+    max_neighbors: int = 2,
+    device: torch.device | str = "cpu",
+) -> MSTOutput:
+    """3DMST seeded from per-pixel disparity maps in pixels: per view, plane
+    labels fit to the seed with their true aggregated cost, then
+    `fine_iterations` (default max(2, cfg.iterations // 10)) refinements
+    with the ladder entered at `refine_start`; then the smoothness prior
+    and the LR check of the left map. Same RNG stream as the JAX function."""
+    fi = max(2, cfg.iterations // 10) if fine_iterations is None else fine_iterations
+    kl, kr = trandom.split(trandom.PRNGKey(seed, device))
+
+    def view(k, bgr, vol, seed_disp):
+        vol = torch.as_tensor(vol).to(device)
+        if cfg.volume_dtype != "float32":
+            vol = vol.to(getattr(torch, cfg.volume_dtype))
+        fa = build_view_forest(bgr, cfg, device)
+        a0, b0, c0 = plane_labels_from_disparity(torch.as_tensor(seed_disp).to(device), fa)
+        mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
+        a, b, c, _ = mst_pms_optimize(
+            k, vol, fa, cfg, max_neighbors=max_neighbors, iterations=fi,
+            init_state=(a0, b0, c0, mc0), refine_start=refine_start,
+        )
+        return labels_to_disparity(a, b, c, fa, cfg.max_disp) * (cfg.max_disp - 1.0)
+
+    disp_l = view(kl, left_bgr, left_vol, seed_disp_l)
+    disp_r = view(kr, right_bgr, right_vol, seed_disp_r)
+    return _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg)

@@ -65,7 +65,7 @@ def adgrad_bgr_volumes(
 
     xs = torch.arange(w, device=dev)[:, None]
     ds = cfg.min_disp + torch.arange(num_disp, device=dev)[None, :]
-    bad = torch.tensor(cfg.bad_cost, dtype=torch.float32, device=dev)
+    bad = torch.full((), cfg.bad_cost, dtype=torch.float32, device=dev)
 
     rvol = volume(right_bgr, gr, left_bgr, gl, +1)
     rvol = torch.where((xs + ds + 1 < w)[None], rvol, bad)

@@ -37,7 +37,7 @@ from .segmentation import (
     ceil_log2,
 )
 
-__all__ = ["build_forest_device", "device_forest_arrays"]
+__all__ = ["build_forest_device", "check_forest_capacity", "device_forest_arrays"]
 
 
 def _grid_edges_idx(h: int, w: int, device):
@@ -367,11 +367,9 @@ def build_forest_device(
     }
 
 
-def device_forest_arrays(raw: dict, height: int, width: int, tmax: int) -> ForestArrays:
-    """Wrap build_forest_device's dict as ForestArrays (num_trees = tmax).
-    Reads two scalars on the host to verify the static capacities: the
-    forest build already waits on the host every round, so unlike the JAX
-    package's jitted frame the port always checks."""
+def check_forest_capacity(raw: dict, tmax: int) -> None:
+    """Raise if build_forest_device's static capacities were exceeded.
+    Reads two scalars on the host, so it waits for the build."""
     nt = int(raw["num_trees_actual"])
     if nt > tmax:
         raise ValueError(
@@ -380,6 +378,17 @@ def device_forest_arrays(raw: dict, height: int, width: int, tmax: int) -> Fores
     at = int(raw["adj_total"])
     if at > raw["adj_list"].shape[0]:
         raise ValueError(f"inter-tree adjacency {at} exceeds adj_cap={raw['adj_list'].shape[0]}")
+
+
+def device_forest_arrays(raw: dict, height: int, width: int, tmax: int,
+                         check: bool = True) -> ForestArrays:
+    """Wrap build_forest_device's dict as ForestArrays (num_trees = tmax).
+    check=True verifies the static capacities (check_forest_capacity, a
+    host sync). The frame programs check once, where the forest is built
+    (models/sgbm_mst.py::_view_forest), and wrap with check=False, so a
+    frame that refines on a chained forest enqueues without a sync."""
+    if check:
+        check_forest_capacity(raw, tmax)
     return ForestArrays(
         **{k: raw[k] for k in ForestArrays._fields if k in raw},
         num_trees=tmax,

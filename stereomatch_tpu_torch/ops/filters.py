@@ -31,11 +31,12 @@ def _zero_pad(x: torch.Tensor, axis: int, before: int, after: int) -> torch.Tens
 
 def _reflect101(x: torch.Tensor, radius: int, axis: int) -> torch.Tensor:
     n = x.shape[axis]
+    dev = x.device  # built there: a host-to-device copy would sync
     idx = torch.cat([
-        torch.arange(radius, 0, -1),
-        torch.arange(n),
-        torch.arange(n - 2, n - 2 - radius, -1),
-    ]).to(x.device)
+        torch.arange(radius, 0, -1, device=dev),
+        torch.arange(n, device=dev),
+        torch.arange(n - 2, n - 2 - radius, -1, device=dev),
+    ])
     return x.index_select(axis, idx)
 
 

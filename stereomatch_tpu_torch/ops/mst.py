@@ -197,9 +197,11 @@ def refine_deltas(max_disp: int, start: float | None = None, device="cpu"):
     while md > 0.1:
         deltas.append((md, mn))
         md, mn = md * 0.5, mn * 0.5
+    # built on the host and copied without a stream sync: a blocking copy
+    # would make the host wait for every frame enqueued before it
     return (
-        torch.tensor([d for d, _ in deltas], dtype=torch.float32, device=device),
-        torch.tensor([m for _, m in deltas], dtype=torch.float32, device=device),
+        torch.tensor([d for d, _ in deltas], dtype=torch.float32).to(device, non_blocking=True),
+        torch.tensor([m for _, m in deltas], dtype=torch.float32).to(device, non_blocking=True),
     )
 
 

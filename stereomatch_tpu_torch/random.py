@@ -64,9 +64,10 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int | torch.Tensor) -> torch.Tensor:
-    """Key derived from `key` and a 32-bit integer (Python or 0-dim)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """Key derived from `key` and a 32-bit Python integer."""
+    # a device fill: a host-to-device copy of `data` would sync the stream
+    d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
     y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
     return torch.stack([y0, y1])
 
@@ -109,6 +110,6 @@ def uniform(
     bits = _random_bits32(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))

@@ -123,3 +123,35 @@ def test_nvcc_route_builds_both_kernels(cuda, tmp_path):
     out = subprocess.run([sys.executable, "-c", _NVCC_ROUTE, str(tmp_path)],
                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reuse_forest", [False, True])
+def test_video_temporal_frame_launches_k2_only(cuda, reuse_forest):
+    """A temporal frame of the video server runs no SGBM, so K1 is not
+    launched; its 2 views x (1 seed tree filter + 2 iterations) x 4 scans
+    launch K2 24 times. On the chained forests (reuse_forest) the frame
+    enqueues without a host sync."""
+    from stereomatch_tpu_torch.config import production_mst_config
+    from stereomatch_tpu_torch.serving import compile_mst_video_server
+    from stereomatch_tpu_torch.synthetic import render_sequence
+
+    h, w, d = 120, 160, 24
+    seq = render_sequence(2, 2, h, w, d)
+    cfg = production_mst_config(d, min_cc_size=100, c=2000.0, forest_backend="device")
+    srv = compile_mst_video_server(h, w, cfg=cfg, device=cuda, reuse_forest=reuse_forest,
+                                   volume_guided=not reuse_forest)
+    srv.collect(srv.submit_pair(seq[0].left, seq[0].right))  # the keyframe
+    k1, k2 = aggregate_8path_cuda.launches, segmented_cumsum.launches
+    torch.cuda.synchronize()
+    if reuse_forest:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = srv.submit_pair(seq[1].left, seq[1].right)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not srv._queue[-1].is_key
+    dl, dr = srv.collect(t)
+    assert aggregate_8path_cuda.launches == k1
+    assert segmented_cumsum.launches - k2 == 24
+    assert dl.shape == (h, w) and np.isfinite(dl).all() and np.isfinite(dr).all()

@@ -66,11 +66,35 @@ def test_tickets_backpressure_and_drain(pair):
 
 
 def test_unported_options_raise():
-    for kw in (dict(staged=True), dict(cache_dir="x"), dict(retries=1)):
+    for kw in (dict(staged=True), dict(cache_dir="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", **kw)
     with pytest.raises(ValueError):
         StereoStreamServer(lambda: (), "cpu", capacity=0)
+
+
+def test_retries_replay_a_failed_frame(pair):
+    """retries=1: a frame whose output copy to the host raises is uploaded
+    again from the host inputs and rerun with its own key."""
+    left, right = pair
+    srv = compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", fine_iterations=1, retries=1)
+    want = srv.collect(srv.submit_pair(left, right, seed=0))
+
+    class _Lost:
+        def cpu(self):
+            raise RuntimeError("CUDA error: unspecified launch failure")
+
+    frame, calls = srv.pipeline, []
+
+    def flaky(*args):
+        calls.append(1)
+        return (_Lost(), _Lost()) if len(calls) == 1 else frame(*args)
+
+    srv.pipeline = flaky
+    got = srv.collect(srv.submit_pair(left, right, seed=0))
+    assert srv.failures == 1 and len(calls) == 2
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
 
 
 def test_fused_entry_is_the_server_frame(pair):
