@@ -4,7 +4,10 @@
 
 Builds the port's two Hopper kernels from this checkout, checks each
 against its plain PyTorch twin at the shapes the production frame gives
-it, then serves 3 frames of a 960x1280 pair at 128 disparities through
+it (K1 on the frame's own SGBM cost within float32 reassociation, and bit
+for bit on the same cost rounded to integers; K2 within rtol 1e-5 / atol
+1e-4), times each beside its bound, then serves 3 frames of a 960x1280
+pair at 128 disparities through
 `stereomatch_tpu_torch.serving.compile_sgbm_mst_server`, with the guided
 and the raw cost volume, and gates the LR-checked left maps on the
 scene's exact ground truth. Then the video path at the same size, through
@@ -14,8 +17,9 @@ sequence, the guided rebuild-per-frame server on 3 frames, and one hard
 cut (the mirrored scene), whose replay must equal a fresh keyframe. Every
 path's K1 / K2 launches are counted and held to its frame mix. Fails
 (non-zero exit, no result line) on any fault, and when no CUDA device is
-present. The last stdout line is {"ok": true, "device": {...}}; the line
-before it lists the kernels.
+present. Imports nothing of jax or of the JAX package, and asserts that
+no module of either was loaded. The last stdout line is {"ok": true,
+"device": {...}}; the line before it lists the kernels.
 """
 
 from __future__ import annotations
@@ -40,13 +44,20 @@ RESEED_EVERY = 3
 GATES = {"valid": 0.35, "epe": 1.2, "bad2": 0.08}
 # temporal frames absorb one frame of motion (tests/test_mst_video.py:96-98)
 TEMPORAL_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.08}
-# K1 / K2 launches per keyframe (2 views x (1 + 4 iterations) x 4 scans)
-# and per temporal frame at 2 iterations (2 x (1 + 2) x 4)
-KEY_LAUNCHES = {"K1": 8, "K2": 40}
+# launches per keyframe: K1 once (one SGBM seed, all 8 directions in one
+# launch), K2 2 views x (1 + 4 iterations) x 4 scans; per temporal frame at
+# 2 iterations: no SGBM, K2 2 x (1 + 2) x 4
+KEY_LAUNCHES = {"K1": 1, "K2": 40}
 TEMPORAL_LAUNCHES = {"K1": 0, "K2": 24}
-# modules of the JAX package the port itself imports (through its config.py
-# and synthetic.py): plain dataclasses and numpy
-FRAMEWORK_FREE = {"stereomatch_tpu", "stereomatch_tpu.config", "stereomatch_tpu.synthetic"}
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
+# tensor cores; a kernel's bound is the larger of its bytes (each input
+# read once, each output written once) and its operations over these
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# K1 against its twin on non-integer costs: both sum the same n <= 8
+# non-negative Lr in different orders, which differ by at most
+# 2 (n - 1) 2^-24 of the sum (8.3e-7)
+K1_RTOL = 1e-6
 
 
 def log(*a):
@@ -63,6 +74,14 @@ def cuda_time_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    """The least time in ms the card could take for `nbytes` moved and
+    `nops` float32 operations, and which of the two bounds it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def gate(dl, dr, scene, gates, tag):
@@ -230,31 +249,50 @@ def main() -> int:
     kernels = {}
 
     # ---- K1: the aggregation on the frame's own SGBM cost (H, W', D) ----
+    # The float BT.601 luma makes the cost non-integer, so K1's reductions,
+    # which land in any order, agree with the twin's ordered sum to float32
+    # reassociation (K1_RTOL); on the same cost rounded to integers every
+    # partial sum is exact and they agree bit for bit.
+    npaths = sgbm_cfg.num_paths
     k1_err, k1_rows = 0.0, {}
     for dt in ("float32", "bfloat16"):
         c = sgbm_cost_volume(_gray_from_bgr(left0), _gray_from_bgr(right0),
                              dataclasses.replace(sgbm_cfg, cost_dtype=dt))
         margin = sgbm_cfg.min_disp + sgbm_cfg.num_disp
         c = c[:, margin:].contiguous()
-        got = aggregate_8path_cuda(c, p1, p2, sgbm_cfg.num_paths)
-        want = aggregate_8path(c, p1, p2, sgbm_cfg.num_paths)
+        got = aggregate_8path_cuda(c, p1, p2, npaths)
+        want = aggregate_8path(c, p1, p2, npaths)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=0.0)
+        err = (got - want).abs().max().item()
+        k1_err = max(k1_err, err)
+        same = torch.equal(got, want)
+        del got, want
+        ci = c.float().round().to(c.dtype)
+        got = aggregate_8path_cuda(ci, p1, p2, npaths)
+        want = aggregate_8path(ci, p1, p2, npaths)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(
-                f"K1 != twin ({dt}): max |diff| {(got - want).abs().max().item()}")
-        k1_err = max(k1_err, (got - want).abs().max().item())
-        ms = cuda_time_ms(lambda: aggregate_8path_cuda(c, p1, p2, sgbm_cfg.num_paths), 10)
-        plain = cuda_time_ms(lambda: aggregate_8path(c, p1, p2, sgbm_cfg.num_paths), 1)
-        k1_rows[dt] = (ms, plain)
-        log(f"K1 {dt} {tuple(c.shape)}: bitwise equal to twin; kernel {ms:.3f} ms, "
-            f"twin {plain:.1f} ms")
-        del c, got, want
+            raise AssertionError(f"K1 != twin on integer costs ({dt}): max |diff| "
+                                 f"{(got - want).abs().max().item()}")
+        del got, want, ci
+        ms = cuda_time_ms(lambda: aggregate_8path_cuda(c, p1, p2, npaths), 10)
+        plain = cuda_time_ms(lambda: aggregate_8path(c, p1, p2, npaths), 1)
+        # C read once, S written once; about 8 float32 operations per
+        # direction per cost (the DP's adds and mins, the add into S)
+        bms, by = bound(c.numel() * (c.element_size() + 4), 8.0 * npaths * c.numel())
+        k1_rows[dt] = (ms, plain, bms, by)
+        log(f"K1 {dt} {tuple(c.shape)}: the frame's cost within rtol {K1_RTOL} of the twin "
+            f"(max |diff| {err:.3g}, bitwise: {same}); integer costs bitwise equal; "
+            f"kernel {ms:.3f} ms, twin {plain:.1f} ms, bound {bms:.3f} ms ({by})")
+        del c
     kernels["K1"] = {
         "name": "sgbm_aggregate_8path", "route": "cuda",
         "source": "stereomatch_tpu_torch/csrc/sgbm_aggregate.cu",
         "replaces": "stereomatch_tpu/ops/sgbm_pallas.py:255",
         "max_abs_err": k1_err, "ms": k1_rows["bfloat16"][0],
-        "plain_ms": k1_rows["bfloat16"][1],
+        "plain_ms": k1_rows["bfloat16"][1], "bound_ms": k1_rows["bfloat16"][2],
+        "bound_by": k1_rows["bfloat16"][3], "library_ms": None,
     }
 
     # ---- K2: the scans on a real forest's resets, (7, N) and (7, 2N) ----
@@ -271,15 +309,19 @@ def main() -> int:
         k2_err = max(k2_err, (got - want).abs().max().item())
         ms = cuda_time_ms(lambda: segmented_cumsum(x, reset), 20)
         plain = cuda_time_ms(lambda: segmented_cumsum_twin(x, reset), 5)
-        k2_rows[name] = (ms, plain)
+        # x and the resets read once, the scan written once; one add a value
+        bms, by = bound(x.numel() * 8 + reset.numel() * reset.element_size(), x.numel())
+        k2_rows[name] = (ms, plain, bms, by)
         log(f"K2 {name} {tuple(x.shape)}: within rtol 1e-5 / atol 1e-4 of twin "
-            f"(max |diff| {k2_err:.3g}); kernel {ms:.3f} ms, twin {plain:.3f} ms")
+            f"(max |diff| {k2_err:.3g}); kernel {ms:.3f} ms, twin {plain:.3f} ms, "
+            f"bound {bms:.4f} ms ({by})")
     del raw, x, got, want
     kernels["K2"] = {
         "name": "segmented_cumsum", "route": "cuda",
         "source": "stereomatch_tpu_torch/csrc/seg_scan.cu",
         "replaces": "stereomatch_tpu/ops/mst_scan_pallas.py:118",
         "max_abs_err": k2_err, "ms": k2_rows["euler"][0], "plain_ms": k2_rows["euler"][1],
+        "bound_ms": k2_rows["euler"][2], "bound_by": k2_rows["euler"][3], "library_ms": None,
     }
 
     # ---- the slice: the server's main path, counted ----
@@ -337,10 +379,10 @@ def main() -> int:
     del vl, vr, seed_l, raw
     by_path = {"fused_server": launches, **video_path(cfg, dev)}
 
-    # the port shares only the JAX package's framework-free modules
-    from_jax_pkg = {m for m in sys.modules if m.split(".")[0] == "stereomatch_tpu"}
-    if "jax" in sys.modules or from_jax_pkg - FRAMEWORK_FREE:
-        raise AssertionError(f"jax or a jax module was imported: {sorted(from_jax_pkg)}")
+    # the port imports nothing of jax and nothing of the JAX package
+    from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))
+    if from_jax:
+        raise AssertionError(f"jax or the JAX package was imported: {from_jax}")
     for k in ("K1", "K2"):
         counts = {path: c[k] for path, c in by_path.items()}
         if min(counts.values()) <= 0:

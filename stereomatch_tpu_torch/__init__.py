@@ -7,9 +7,11 @@ Hopper kernel under `csrc/` with a plain PyTorch twin beside it: a wrapper
 launches its kernel for CUDA tensors and runs the twin only for CPU
 tensors. Kernels build at first use (`_build.py`), never at import.
 
-The frozen configs (`MSTConfig`, `SGBMConfig`, ...) are shared with the JAX
-package through `config.py`, which re-exports `stereomatch_tpu.config` (plain
-dataclasses, no framework); `synthetic.py` shares its ground-truth scenes.
+The package imports nothing of the JAX package. `config.py` holds its own
+copy of the frozen configs (`MSTConfig`, `SGBMConfig`, ...), field for field
+the JAX package's, and `synthetic.py` its own copy of the ground-truth
+scenes, pixel for pixel the JAX package's. Public entry points run on the
+card (`device="cuda"`) unless the caller passes another device.
 """
 
 __version__ = "0.1.0"

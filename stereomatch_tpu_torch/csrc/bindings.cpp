@@ -6,6 +6,9 @@
 
 #include <torch/extension.h>
 
+#include <cstdint>
+#include <vector>
+
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
 
@@ -18,18 +21,23 @@ void check_cuda_contig(const at::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
-void sgbm_direction(const at::Tensor& cost, at::Tensor s, int64_t dy, int64_t dx,
-                    double p1, double p2) {
+void sgbm_aggregate(const at::Tensor& cost, at::Tensor s, const std::vector<int64_t>& dys,
+                    const std::vector<int64_t>& dxs, double p1, double p2) {
   check_cuda_contig(cost, "cost");
   check_cuda_contig(s, "s");
   TORCH_CHECK(cost.dim() == 3 && s.sizes() == cost.sizes(), "cost and s must be (H, W, D)");
   TORCH_CHECK(s.scalar_type() == at::kFloat, "s must be float32");
   const bool bf16 = cost.scalar_type() == at::kBFloat16;
   TORCH_CHECK(bf16 || cost.scalar_type() == at::kFloat, "cost must be float32 or bfloat16");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(cost.data_ptr()) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(s.data_ptr()) % 16 == 0,
+              "cost and s must be 16-byte aligned");
+  TORCH_CHECK(dys.size() == dxs.size(), "one dy per dx");
+  const std::vector<int> dy(dys.begin(), dys.end()), dx(dxs.begin(), dxs.end());
   const c10::cuda::CUDAGuard guard(cost.device());
-  sgbm_direction_launch(cost.data_ptr(), bf16, s.data_ptr<float>(), (int)cost.size(0),
-                        (int)cost.size(1), (int)cost.size(2), (int)dy, (int)dx, (float)p1,
-                        (float)p2, at::cuda::getCurrentCUDAStream());
+  sgbm_aggregate_launch(cost.data_ptr(), bf16, s.data_ptr<float>(), (int)cost.size(0),
+                        (int)cost.size(1), (int)cost.size(2), (int)dy.size(), dy.data(),
+                        dx.data(), (float)p1, (float)p2, at::cuda::getCurrentCUDAStream());
 }
 
 void seg_scan(const at::Tensor& x, const at::Tensor& reset, at::Tensor out,
@@ -58,6 +66,6 @@ void seg_scan(const at::Tensor& x, const at::Tensor& reset, at::Tensor out,
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("sgbm_direction", &sgbm_direction, "K1: one SGBM path direction, S += Lr");
+  m.def("sgbm_aggregate", &sgbm_aggregate, "K1: S += sum of Lr over the given directions");
   m.def("seg_scan", &seg_scan, "K2: segmented inclusive prefix sum along rows");
 }

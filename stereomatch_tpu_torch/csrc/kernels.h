@@ -6,11 +6,13 @@
 #include <cstdint>
 #include <cuda_runtime_api.h>
 
-// K1 (sgbm_aggregate.cu): one SGBM path direction, S += Lr in place.
-// cost (h, w, d) float32 or bfloat16, s (h, w, d) float32, both contiguous;
-// (dy, dx) = pixel - predecessor, each in {-1, 0, 1}; d <= 256.
-void sgbm_direction_launch(const void* cost, bool cost_bf16, float* s, int h, int w,
-                           int d, int dy, int dx, float p1, float p2,
+// K1 (sgbm_aggregate.cu): S += sum over the ndirs directions of Lr, one
+// launch. cost (h, w, d) float32 or bfloat16, 16-byte aligned; s (h, w, d)
+// float32, zero-filled by the caller, 16-byte aligned; both contiguous;
+// direction k is (dys[k], dxs[k]) = pixel - predecessor, each in {-1, 0, 1};
+// 1 <= ndirs <= 8; d a multiple of 16, at most 256.
+void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, int w, int d,
+                           int ndirs, const int* dys, const int* dxs, float p1, float p2,
                            cudaStream_t stream);
 
 // K2 (seg_scan.cu): inclusive segmented prefix sum of each row of x (k, m)

@@ -68,7 +68,7 @@ def _seed_min_cost(vol, a0, b0, c0, fa, cfg: MSTConfig) -> torch.Tensor:
     return mc0
 
 
-def build_view_forest(bgr, cfg: MSTConfig, device: torch.device | str = "cpu") -> ForestArrays:
+def build_view_forest(bgr, cfg: MSTConfig, device: torch.device | str = "cuda") -> ForestArrays:
     """The forest of one view on `device`: median prefilter, L1 colour edge
     weights and the device forest, at the tree capacity of
     _fused_capacities, its capacities checked. Only
@@ -100,7 +100,7 @@ def mst_stereo_seeded(
     fine_iterations: int | None = None,
     refine_start: float | None = 2.0,
     max_neighbors: int = 2,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> MSTOutput:
     """3DMST seeded from per-pixel disparity maps in pixels: per view, plane
     labels fit to the seed with their true aggregated cost, then

@@ -153,7 +153,7 @@ def _on(x, device, dtype=None) -> torch.Tensor:
 
 
 def sgbm_seed_disparities(left_bgr, right_bgr, cfg: SGBMConfig, right_seed: str = "disp2",
-                          device: torch.device | str = "cpu"):
+                          device: torch.device | str = "cuda"):
     """(left, right) filled SGBM disparity maps in pixels, on `device`."""
     return _seed_pair(_gray_from_bgr(_on(left_bgr, device, torch.float32)),
                       _gray_from_bgr(_on(right_bgr, device, torch.float32)), cfg, right_seed)
@@ -171,7 +171,7 @@ def sgbm_mst_stereo(
     refine_start: float | None = 2.0,
     max_neighbors: int = 2,
     right_seed: str = "disp2",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> MSTOutput:
     """SGBM seeds (clipped to [0, max_disp-1]) refined by mst_stereo_seeded:
     the unfused composition, with the forest built by build_view_forest."""
@@ -198,7 +198,7 @@ def sgbm_mst_stereo_fused(
     refine_start: float | None = 2.0,
     max_neighbors: int = 2,
     right_seed: str = "disp2",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> MSTOutput:
     """SGBM-seeded 3DMST on a rectified BGR pair + (H, W, D) cost volumes,
     run on `device`: the frame, the smoothness prior and the LR check of
@@ -229,7 +229,7 @@ def mst_stereo_temporal_fused(
     fine_iterations: int = 4,
     refine_start: float | None = 2.0,
     max_neighbors: int = 2,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> MSTOutput:
     """One video frame: the previous frame's maps (both views, clipped to
     [0, max_disp-1]) seed this frame's plane labels, then the smoothness
@@ -261,7 +261,7 @@ def sgbm_mst_video(
     max_neighbors: int = 2,
     right_seed: str = "disp2",
     seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> list[MSTOutput]:
     """Offline temporal composition over (left_bgr, right_bgr) frames and
     their (left_vol, right_vol) volumes. Frame 0, and frame i whenever

@@ -18,6 +18,7 @@ from stereomatch_tpu.ops import filters as jf
 from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes as t_builtin
 from stereomatch_tpu_torch.ops import cost as tc
 from stereomatch_tpu_torch.ops import filters as tf
+from test_torch_config import port_cfg
 
 RTOL = 1e-5
 
@@ -84,7 +85,7 @@ def test_adgrad_volumes(pair):
     left, right = pair
     cfg = CostVolumeConfig(min_disp=0, max_disp=15)
     want = jc.adgrad_bgr_volumes(jnp.asarray(left), jnp.asarray(right), cfg)
-    got = tc.adgrad_bgr_volumes(torch.from_numpy(left), torch.from_numpy(right), cfg)
+    got = tc.adgrad_bgr_volumes(torch.from_numpy(left), torch.from_numpy(right), port_cfg(cfg))
     np.testing.assert_array_equal(
         tc.bgr_to_gray(torch.from_numpy(left)).numpy(), np.asarray(jc.bgr_to_gray(jnp.asarray(left)))
     )

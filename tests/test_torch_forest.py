@@ -18,6 +18,7 @@ from stereomatch_tpu_torch.models.sgbm_mst import _view_forest as t_view_forest
 from stereomatch_tpu_torch.ops.device_forest import build_forest_device as t_build
 from stereomatch_tpu_torch.ops.device_forest import device_forest_arrays
 from stereomatch_tpu_torch.ops.segmentation import boruvka_segment as t_segment
+from test_torch_config import port_cfg
 
 CASES = [(48, 64, 800.0, 20), (31, 45, 300.0, 4), (96, 128, 2000.0, 100)]
 
@@ -72,7 +73,7 @@ def test_view_forest_float_image(rng):
     cfg = production_mst_config(16, on_tpu=False, min_cc_size=20, c=800.0)
     tmax, adj_cap = _fused_capacities(48, 64, cfg)
     want = j_view_forest(jnp.asarray(img), cfg, tmax, adj_cap)
-    got = t_view_forest(torch.from_numpy(img), cfg, tmax, adj_cap)
+    got = t_view_forest(torch.from_numpy(img), port_cfg(cfg), tmax, adj_cap)
     _assert_forest_equal(want, got)
 
 

@@ -1,8 +1,8 @@
 """The port never imports jax: the GPU machine has none. Every module of
 stereomatch_tpu_torch, and chip_smoke.py, imports in a process where any
-import of jax raises, and no port source names jax in an import. Of the JAX
-package, the port loads only its framework-free config and scene modules,
-and only through its own config.py and synthetic.py."""
+import of jax raises, and no port source names jax in an import. Nor does
+the port import anything of the JAX package, not even its framework-free
+modules: it keeps its own copies (config.py, synthetic.py)."""
 
 import pathlib
 import re
@@ -13,9 +13,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "stereomatch_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-# the only port files that import the JAX package (its framework-free modules)
-SHARED_BOUNDARY = {PORT / "config.py", PORT / "synthetic.py"}
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_k1.py"]
 
 _BLOCK_JAX = """
 import importlib.abc, pkgutil, sys
@@ -31,8 +29,8 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 assert not any(k == "jax" or k.startswith("jax.") for k in sys.modules)
-shared = {{k for k in sys.modules if k.split(".")[0] == "stereomatch_tpu"}}
-assert shared <= chip_smoke.FRAMEWORK_FREE, sorted(shared)
+jax_pkg = sorted(k for k in sys.modules if k.split(".")[0] == "stereomatch_tpu")
+assert not jax_pkg, jax_pkg
 print(len(mods))
 """
 
@@ -50,5 +48,4 @@ def test_port_imports_with_jax_blocked():
 def test_no_jax_import_in_source(path):
     src = path.read_text()
     assert not re.search(r"^\s*(import\s+jax|from\s+jax[\s.])", src, re.M), path
-    if path not in SHARED_BOUNDARY:
-        assert not re.search(r"^\s*(import|from)\s+stereomatch_tpu\b", src, re.M), path
+    assert not re.search(r"^\s*(import|from)\s+stereomatch_tpu\b", src, re.M), path

@@ -21,6 +21,7 @@ from stereomatch_tpu_torch.interop import forest_from_numpy, key_from_jax
 from stereomatch_tpu_torch.models.mst import _seed_min_cost as t_seed_min_cost
 from stereomatch_tpu_torch.ops import mst as tmst
 from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum, segmented_cumsum_twin
+from test_torch_config import port_cfg
 
 
 def _random_reset(rng, m, mean_seg):
@@ -154,6 +155,7 @@ def test_seeded_optimize_min_cost(rng):
     fj, ft = _shared_forest(rng)
     d = 16
     cfg = production_mst_config(d, on_tpu=False, min_cc_size=20, c=800.0)
+    tcfg = port_cfg(cfg)
     vol = (rng.random((48, 64, d)) * 0.5).astype(np.float32)
     seed = np.clip(8 + 3 * np.sin(np.arange(64) / 9.0)[None, :] + np.zeros((48, 1)), 0, d - 1)
     seed = seed.astype(np.float32)
@@ -163,15 +165,15 @@ def test_seeded_optimize_min_cost(rng):
     lj = jmst.plane_labels_from_disparity(jnp.asarray(seed), fj)
     lt = tmst.plane_labels_from_disparity(torch.from_numpy(seed), ft)
     mj = j_seed_min_cost(jv, *lj, fj, cfg)
-    mt = t_seed_min_cost(tv, *lt, ft, cfg)
+    mt = t_seed_min_cost(tv, *lt, ft, tcfg)
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-4, atol=1e-4)
     kw = dict(max_neighbors=2, iterations=3, refine_start=2.0)
     *_, mc_j = jmst.mst_pms_optimize(key, jv, fj, cfg, init_state=(*lj, mj), **kw)
-    a, b, c, mc_t = tmst.mst_pms_optimize(key_from_jax(key), tv, ft, cfg, init_state=(*lt, mt), **kw)
+    a, b, c, mc_t = tmst.mst_pms_optimize(key_from_jax(key), tv, ft, tcfg, init_state=(*lt, mt), **kw)
     np.testing.assert_allclose(mc_t.numpy(), np.asarray(mc_j), rtol=1e-3, atol=1e-3)
     assert (mc_t <= mt + 1e-6).all()  # the seed is sticky: costs only drop
     # candidate_chunk evaluates the same candidates with a running min
-    chunked = tmst.mst_pms_optimize(key_from_jax(key), tv, ft, cfg, init_state=(*lt, mt),
+    chunked = tmst.mst_pms_optimize(key_from_jax(key), tv, ft, tcfg, init_state=(*lt, mt),
                                     candidate_chunk=3, **kw)
     for x, y in zip(chunked, (a, b, c, mc_t)):
         np.testing.assert_array_equal(x.numpy(), y.numpy())

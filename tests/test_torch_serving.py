@@ -18,9 +18,11 @@ from stereomatch_tpu.synthetic import render_scene, scene_eval_mask
 from stereomatch_tpu_torch.models.sgbm_mst import sgbm_mst_stereo_fused
 from stereomatch_tpu_torch.ops.postprocess import lr_consistency
 from stereomatch_tpu_torch.serving import StereoStreamServer, compile_sgbm_mst_server
+from test_torch_config import port_cfg
 
 H, W, D = 48, 64, 16
 CFG = production_mst_config(D, on_tpu=False, min_cc_size=20, c=800.0)
+TCFG = port_cfg(CFG)  # the same fields in the port's own config
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +39,7 @@ def test_frame_matches_jax_server(pair, guided):
     left, right = pair
     js = j_server(H, W, cfg=CFG, volume_guided=guided)
     want = js.collect(js.submit_pair(left, right, seed=0))
-    ts = compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", volume_guided=guided)
+    ts = compile_sgbm_mst_server(H, W, cfg=TCFG, device="cpu", volume_guided=guided)
     got = ts.collect(ts.submit_pair(left, right, seed=0))
     for w_, g_ in zip(want, got):
         assert g_.shape == (H, W) and g_.dtype == np.float32 and np.isfinite(g_).all()
@@ -46,7 +48,7 @@ def test_frame_matches_jax_server(pair, guided):
 
 def test_tickets_backpressure_and_drain(pair):
     left, right = pair
-    srv = compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", fine_iterations=1, capacity=1)
+    srv = compile_sgbm_mst_server(H, W, cfg=TCFG, device="cpu", fine_iterations=1, capacity=1)
     t0 = srv.submit_pair(left, right)
     t1 = srv.submit_pair(left, right)  # capacity 1: frame 0 finishes first
     assert (t0, t1) == (0, 1) and len(srv._queue) == 1 and 0 in srv._done
@@ -68,7 +70,7 @@ def test_tickets_backpressure_and_drain(pair):
 def test_unported_options_raise():
     for kw in (dict(staged=True), dict(cache_dir="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", **kw)
+            compile_sgbm_mst_server(H, W, cfg=TCFG, device="cpu", **kw)
     with pytest.raises(ValueError):
         StereoStreamServer(lambda: (), "cpu", capacity=0)
 
@@ -77,7 +79,7 @@ def test_retries_replay_a_failed_frame(pair):
     """retries=1: a frame whose output copy to the host raises is uploaded
     again from the host inputs and rerun with its own key."""
     left, right = pair
-    srv = compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", fine_iterations=1, retries=1)
+    srv = compile_sgbm_mst_server(H, W, cfg=TCFG, device="cpu", fine_iterations=1, retries=1)
     want = srv.collect(srv.submit_pair(left, right, seed=0))
 
     class _Lost:
@@ -102,11 +104,11 @@ def test_fused_entry_is_the_server_frame(pair):
     from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
 
     left, right = pair
-    srv = compile_sgbm_mst_server(H, W, cfg=CFG, device="cpu", volume_guided=False)
+    srv = compile_sgbm_mst_server(H, W, cfg=TCFG, device="cpu", volume_guided=False)
     dl, dr = srv.collect(srv.submit_pair(left, right, seed=3))
     vl, vr = builtin_cost_volumes(torch.from_numpy(left).flip(-1),
                                   torch.from_numpy(right).flip(-1), D, guided=False)
-    out = sgbm_mst_stereo_fused(left, right, vl, vr, CFG, seed=3, device="cpu")
+    out = sgbm_mst_stereo_fused(left, right, vl, vr, TCFG, seed=3, device="cpu")
     np.testing.assert_array_equal(out.right_disp.numpy(), dr)
     checked, valid = lr_consistency(torch.from_numpy(dl), torch.from_numpy(dr), float(D), fill=False)
     np.testing.assert_array_equal(out.left_disp.numpy(), checked.numpy())
@@ -118,8 +120,8 @@ def test_absolute_gt_gates(guided):
     """The production recipe at 240x320x32 meets the absolute gates of
     tests/test_mst_seeded.py (valid > 0.35, EPE < 1.2 px, bad2 < 8%)."""
     sc = render_scene(1, 240, 320, 32)
-    cfg = production_mst_config(32, on_tpu=False, min_cc_size=100, c=2000.0,
-                                forest_backend="device")
+    cfg = port_cfg(production_mst_config(32, on_tpu=False, min_cc_size=100, c=2000.0,
+                                         forest_backend="device"))
     srv = compile_sgbm_mst_server(240, 320, cfg=cfg, device="cpu", volume_guided=guided)
     dl, dr = srv.collect(srv.submit_pair(sc.left, sc.right, seed=0))
     checked, valid = lr_consistency(torch.from_numpy(dl), torch.from_numpy(dr), 32.0, fill=False)

@@ -24,8 +24,10 @@ from stereomatch_tpu_torch.models.sgbm_mst import _seed_pair as t_seed_pair
 from stereomatch_tpu_torch.ops import postprocess as tpost
 from stereomatch_tpu_torch.ops import sgbm as tsgbm
 from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
+from test_torch_config import port_cfg
 
 CFG = SGBMConfig(min_disp=0, num_disp=16, block_size=5)
+TCFG = port_cfg(CFG)  # the same fields in the port's own config
 
 
 def _int_pair(rng, h=48, w=64, shift=5):
@@ -43,7 +45,7 @@ def test_cost_volume_exact(rng):
         np.asarray(jsgbm.xsobel_clipped(jnp.asarray(left))),
     )
     want = np.asarray(jsgbm.sgbm_cost_volume(jnp.asarray(left), jnp.asarray(right), CFG))
-    got = tsgbm.sgbm_cost_volume(torch.from_numpy(left), torch.from_numpy(right), CFG).numpy()
+    got = tsgbm.sgbm_cost_volume(torch.from_numpy(left), torch.from_numpy(right), TCFG).numpy()
     np.testing.assert_array_equal(got, want)
     assert np.array_equal(got, np.round(got))  # integer-valued
 
@@ -78,7 +80,7 @@ def test_aggregate_twin_bf16_costs_f32_state(rng):
 def test_sgbm_disparity_exact(rng):
     left, right = _int_pair(rng)
     want = jsgbm.sgbm_disparity(jnp.asarray(left), jnp.asarray(right), CFG)
-    got = tsgbm.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), CFG)
+    got = tsgbm.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), TCFG)
     np.testing.assert_array_equal(got.disparity.numpy(), np.asarray(want.disparity))
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     np.testing.assert_array_equal(got.right_disparity.numpy(), np.asarray(want.right_disparity))
@@ -89,7 +91,7 @@ def test_sgbm_bf16_d1_gate(rng):
     left, right = _int_pair(rng, 96, 128, 9)
     cfg16 = SGBMConfig(min_disp=0, num_disp=32, block_size=5, cost_dtype="bfloat16")
     a = jsgbm.sgbm_disparity(jnp.asarray(left), jnp.asarray(right), cfg16)
-    b = tsgbm.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), cfg16)
+    b = tsgbm.sgbm_disparity(torch.from_numpy(left), torch.from_numpy(right), port_cfg(cfg16))
     both = np.asarray(a.valid) & b.valid.numpy()
     assert both.mean() > 0.5
     da, db = np.asarray(a.disparity), b.disparity.numpy()
@@ -102,9 +104,55 @@ def test_sgbm_bf16_d1_gate(rng):
 def test_seed_pair_exact(rng, right_seed):
     left, right = _int_pair(rng)
     wl, wr = j_seed_pair(jnp.asarray(left), jnp.asarray(right), CFG, right_seed)
-    tl, tr = t_seed_pair(torch.from_numpy(left), torch.from_numpy(right), CFG, right_seed)
+    tl, tr = t_seed_pair(torch.from_numpy(left), torch.from_numpy(right), TCFG, right_seed)
     np.testing.assert_array_equal(tl.numpy(), np.asarray(wl))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(wr))
+
+
+@pytest.mark.parametrize("gray", ["integer", "luma"])
+@pytest.mark.parametrize("cost_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("num_paths", [8, 5, 4])
+def test_production_cost_sums_in_any_order(gray, cost_dtype, num_paths):
+    """The premise of K1's reductions, which land in any order, on the
+    production SGBM cost. From integer-valued gray images (an 8-bit gray
+    frame, what OpenCV's SGBM takes) the cost is integer-valued in float32
+    and in bfloat16, every partial sum of S is exact, and summing the
+    directions in another order gives the twin's S bit for bit. From the
+    float BT.601 luma of a BGR frame (`_gray_from_bgr`, the server's path)
+    the cost is not integer-valued, and another order agrees with the twin
+    to float32 reassociation: two orders of a sum of n <= 8 non-negative
+    terms differ by at most 2 (n - 1) 2^-24 of the sum, below 1e-6."""
+    import dataclasses
+
+    from stereomatch_tpu_torch.config import production_mst_config
+    from stereomatch_tpu_torch.models.sgbm_mst import _default_sgbm_cfg, _gray_from_bgr
+    from stereomatch_tpu_torch.synthetic import render_scene
+
+    sc = render_scene(4, 40, 96, 32)
+    gl, gr = (_gray_from_bgr(torch.from_numpy(x)) for x in (sc.left, sc.right))
+    if gray == "integer":
+        gl, gr = gl.round(), gr.round()
+    cfg = dataclasses.replace(
+        _default_sgbm_cfg(production_mst_config(32, forest_backend="device")),
+        cost_dtype=cost_dtype)
+    p1, p2 = (float(p) for p in cfg.resolved_p1p2())
+    c = tsgbm.sgbm_cost_volume(gl, gr, cfg)
+    c = c[:, cfg.min_disp + cfg.num_disp:].contiguous()  # the columns K1 aggregates
+    assert c.dtype == getattr(torch, cost_dtype) and c.shape == (40, 64, 32)
+    cf = c.float()
+    assert torch.equal(cf, cf.round()) == (gray == "integer")
+    assert p1 == round(p1) and p2 == round(p2)
+    want = tsgbm.aggregate_8path(c, p1, p2, num_paths)
+    assert want.max() <= num_paths * (cf.max() + p2) < 2**24
+    dirs = list(tsgbm.SGBM_DIRECTIONS[num_paths])
+    for order in (dirs[::-1], dirs[1::2] + dirs[::2]):
+        s = torch.zeros_like(cf)
+        for dy, dx in order:
+            tsgbm._direction_pass(cf, s, dy, dx, p1, p2)
+        if gray == "integer":
+            assert torch.equal(s, want)
+        else:
+            torch.testing.assert_close(s, want, rtol=1e-6, atol=0.0)
 
 
 def test_fill_and_lr_check_exact(rng):

@@ -26,13 +26,15 @@ from stereomatch_tpu_torch.serving import (
     VideoStreamServer,
     compile_mst_video_server,
 )
+from test_torch_config import port_cfg
 
 H, W, D = 48, 64, 16
 CFG = production_mst_config(D, on_tpu=False, min_cc_size=20, c=800.0, forest_backend="device")
+TCFG = port_cfg(CFG)  # the same fields in the port's own config
 # the served-sequence tests of tests/test_serving.py
 GH, GW, GD = 120, 160, 24
-GCFG = production_mst_config(GD, on_tpu=False, min_cc_size=100, c=2000.0,
-                             forest_backend="device")
+GCFG = port_cfg(production_mst_config(GD, on_tpu=False, min_cc_size=100, c=2000.0,
+                                      forest_backend="device"))
 GKW = dict(cfg=GCFG, fine_iterations=4, temporal_iterations=2, temporal_refine_start=4.0,
            device="cpu")
 
@@ -79,7 +81,7 @@ def test_temporal_program_matches_jax(scenes):
     frame 1, seeded with the JAX keyframe's maps of frame 0."""
     a, b = scenes[:2]
     js = j_video_server(H, W, cfg=CFG)
-    ts = compile_mst_video_server(H, W, cfg=CFG, device="cpu")
+    ts = compile_mst_video_server(H, W, cfg=TCFG, device="cpu")
     prev = js.pipeline(jnp.asarray(a.left), jnp.asarray(a.right), jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(1)
     want = js.refine_pipeline(jnp.asarray(b.left), jnp.asarray(b.right), *prev, key)
@@ -94,7 +96,7 @@ def test_reuse_forest_programs_match_jax_on_jax_forests(scenes, jax_rf_server):
     interop.forest_dict_from_numpy)."""
     a, b = scenes[:2]
     js = jax_rf_server
-    ts = compile_mst_video_server(H, W, cfg=CFG, reuse_forest=True, volume_guided=False,
+    ts = compile_mst_video_server(H, W, cfg=TCFG, reuse_forest=True, volume_guided=False,
                                   device="cpu")
     k0, k1 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
     jdl, jdr, jfl, jfr = js.pipeline(jnp.asarray(a.left), jnp.asarray(a.right), k0)
@@ -119,7 +121,7 @@ def test_sequence_continues_from_jax_state(scenes, jax_rf_server):
     js.reset()
     for sc in seq[:2]:
         js.collect(js.submit_pair(sc.left, sc.right))
-    ts = compile_mst_video_server(H, W, cfg=CFG, reuse_forest=True, volume_guided=False,
+    ts = compile_mst_video_server(H, W, cfg=TCFG, reuse_forest=True, volume_guided=False,
                                   device="cpu")
     video_state_from_jax(ts, _np_tree(js._prev), [_np_tree(f) for f in js._prev_forest],
                          js._since_key, js._key_frac, js._prev_ticket)
@@ -155,7 +157,7 @@ def test_offline_entry_matches_jax(entry):
     args = (bgr_l, bgr_r, vol_l, vol_r, *seeds, cfg)
     kw = dict(seed=0, fine_iterations=3, max_neighbors=4)
     want = j_fn(*args, **kw)
-    got = t_fn(*args, **kw)
+    got = t_fn(*args[:-1], port_cfg(cfg), device="cpu", **kw)
     _close(got.right_disp.numpy(), want.right_disp)
     _close(got.left_disp.numpy(), want.left_disp)
     assert (got.left_valid.numpy() == np.asarray(want.left_valid)).mean() >= 0.95
@@ -232,8 +234,9 @@ def test_sgbm_mst_video_absolute_gt_sequence():
         vols.append((lv * s, rv * s))
     cfg = MSTConfig(max_disp=d, iterations=30, min_cc_size=100, c=2000.0,
                     forest_backend="device")
-    outs = sgbm_mst_video([(sc.left, sc.right) for sc in seq], vols, cfg, fine_iterations=4,
-                          temporal_iterations=2, refine_start=4.0)
+    outs = sgbm_mst_video([(sc.left, sc.right) for sc in seq], vols, port_cfg(cfg),
+                          fine_iterations=4, temporal_iterations=2, refine_start=4.0,
+                          device="cpu")
     for i, (sc, out) in enumerate(zip(seq, outs)):
         valid = out.left_valid.numpy() & scene_eval_mask(sc)
         assert valid.mean() > 0.35, (i, valid.mean())
@@ -413,7 +416,7 @@ def test_keyframe_then_temporal_wiring(pair):
     previous frame's maps and the frame's key; after reset() a frame
     equals a direct call of the keyframe program."""
     left, right = pair
-    srv = compile_mst_video_server(H, W, cfg=CFG, fine_iterations=2, temporal_iterations=1,
+    srv = compile_mst_video_server(H, W, cfg=TCFG, fine_iterations=2, temporal_iterations=1,
                                    device="cpu")
     t0, t1 = srv.submit_pair(left, right), srv.submit_pair(left, right)
     dl0, dr0 = srv.collect(t0)
@@ -430,9 +433,10 @@ def test_video_unported_options_raise():
 
     for kw in (dict(staged=True), dict(cache_dir="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            compile_mst_video_server(H, W, cfg=CFG, device="cpu", **kw)
+            compile_mst_video_server(H, W, cfg=TCFG, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_view_forest(np.zeros((H, W, 3), np.float32), MSTConfig(max_disp=D))
+        build_view_forest(np.zeros((H, W, 3), np.float32), port_cfg(MSTConfig(max_disp=D)),
+                          device="cpu")
 
 
 @pytest.mark.parametrize("module,name", [
@@ -447,12 +451,21 @@ def test_video_unported_options_raise():
 ])
 def test_entry_keeps_the_jax_names_and_defaults(module, name):
     """Every argument of the JAX entry but the TPU switch exists in the port,
-    in the same order, with the same default; the port adds `device`."""
+    in the same order, with the same default; the port adds `device`. A
+    config default is compared by its class name and fields (each package
+    has its own config classes)."""
+    import dataclasses
     import importlib
     import inspect
 
+    def default(p):
+        v = p.default
+        if dataclasses.is_dataclass(v):
+            return type(v).__name__, dataclasses.astuple(v)
+        return v
+
     j = inspect.signature(getattr(importlib.import_module(f"stereomatch_tpu.{module}"), name))
     t = inspect.signature(getattr(importlib.import_module(f"stereomatch_tpu_torch.{module}"), name))
-    want = [(k, p.default) for k, p in j.parameters.items() if k != "on_tpu"]
-    got = [(k, p.default) for k, p in t.parameters.items() if k != "device"]
+    want = [(k, default(p)) for k, p in j.parameters.items() if k != "on_tpu"]
+    got = [(k, default(p)) for k, p in t.parameters.items() if k != "device"]
     assert got == want
