@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's two Hopper kernels from this checkout, checks each
-against its plain PyTorch twin at the shapes the production frame gives
-it (K1 on the frame's own SGBM cost within float32 reassociation, and bit
-for bit on the same cost rounded to integers; K2 within rtol 1e-5 / atol
-1e-4), times each beside its bound, then serves 3 frames of a 960x1280
+Builds the port's Hopper kernels from this checkout, checks each against
+its plain PyTorch twin at the shapes the production frame gives it (K1 on
+the frame's own SGBM cost within float32 reassociation, and bit for bit
+on the same cost rounded to integers; K2's node-order and Euler scans and
+its fused ancestor sum on a real forest within rtol 1e-5 / atol 1e-4),
+times each beside its bound (the ancestor sum also beside the composition
+it replaces, with the share of K2's tiles whose look-back went past the
+tile before, and holds each K2 call to one device kernel in
+torch.profiler's events), then serves 3 frames of a 960x1280
 pair at 128 disparities through
 `stereomatch_tpu_torch.serving.compile_sgbm_mst_server`, with the guided
 and the raw cost volume, and gates the LR-checked left maps on the
@@ -45,10 +49,11 @@ GATES = {"valid": 0.35, "epe": 1.2, "bad2": 0.08}
 # temporal frames absorb one frame of motion (tests/test_mst_video.py:96-98)
 TEMPORAL_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.08}
 # launches per keyframe: K1 once (one SGBM seed, all 8 directions in one
-# launch), K2 2 views x (1 + 4 iterations) x 4 scans; per temporal frame at
-# 2 iterations: no SGBM, K2 2 x (1 + 2) x 4
-KEY_LAUNCHES = {"K1": 1, "K2": 40}
-TEMPORAL_LAUNCHES = {"K1": 0, "K2": 24}
+# launch), K2 2 views x (1 + 4 iterations) x 4 scans, half of them the
+# node-order scan (K2) and half the fused ancestor sum (K2a); per temporal
+# frame at 2 iterations: no SGBM, K2 2 x (1 + 2) x 4
+KEY_LAUNCHES = {"K1": 1, "K2": 20, "K2a": 20}
+TEMPORAL_LAUNCHES = {"K1": 0, "K2": 12, "K2a": 12}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -74,6 +79,18 @@ def cuda_time_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def device_kernels(fn) -> int:
+    """The device kernels one call of fn launches, from torch.profiler's
+    CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -105,15 +122,17 @@ def gate(dl, dr, scene, gates, tag):
 
 
 def counted(run):
-    """Run one path with both launch counters set to 0 just before it;
+    """Run one path with every launch counter set to 0 just before it;
     returns (its result, the counts just after it)."""
-    from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum
+    from stereomatch_tpu_torch.ops.mst_scan_cuda import ancestor_sums, segmented_cumsum
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
 
     aggregate_8path_cuda.launches = 0
     segmented_cumsum.launches = 0
+    ancestor_sums.launches = 0
     out = run()
-    return out, {"K1": aggregate_8path_cuda.launches, "K2": segmented_cumsum.launches}
+    return out, {"K1": aggregate_8path_cuda.launches, "K2": segmented_cumsum.launches,
+                 "K2a": ancestor_sums.launches}
 
 
 def expect_launches(tag, got, keys, temporals):
@@ -121,7 +140,8 @@ def expect_launches(tag, got, keys, temporals):
     if got != want:
         raise AssertionError(f"{tag}: launches {got}, expected {want} "
                              f"for {keys} keyframes and {temporals} temporal frames")
-    log(f"{tag}: launches {got} = {keys} keyframes + {temporals} temporal frames")
+    log(f"{tag}: launches {got} (K2 calls {got['K2'] + got['K2a']}) = {keys} keyframes + "
+        f"{temporals} temporal frames")
 
 
 def serve_video(srv, scenes):
@@ -219,7 +239,10 @@ def main() -> int:
         _refine_view_given_forest,
     )
     from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
-    from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum, segmented_cumsum_twin
+    from stereomatch_tpu_torch.ops.mst_scan_cuda import (
+        ancestor_sums, ancestor_sums_twin, lookback_counts, segmented_cumsum,
+        segmented_cumsum_twin,
+    )
     from stereomatch_tpu_torch.ops.sgbm import aggregate_8path, sgbm_cost_volume
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
     from stereomatch_tpu_torch import random as trandom
@@ -234,7 +257,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     load_kernels()
-    log(f"build: {time.perf_counter() - t0:.1f} s (both kernels, from csrc/)")
+    log(f"build: {time.perf_counter() - t0:.1f} s (every kernel, from csrc/)")
 
     h, w = SHAPE
     t0 = time.perf_counter()
@@ -299,30 +322,71 @@ def main() -> int:
     tmax, adj_cap = _fused_capacities(h, w, cfg)
     raw = _view_forest(left0, cfg, tmax, adj_cap)
     g = torch.Generator(device=dev).manual_seed(0)
-    k2_err, k2_rows = 0.0, {}
-    for name, reset in (("nodes", raw["seg_root"]), ("euler", raw["euler_reset"])):
-        x = torch.rand((7, reset.shape[0]), device=dev, generator=g) - 0.3
-        got = segmented_cumsum(x, reset)
-        want = segmented_cumsum_twin(x, reset)
+    euler = [raw[key] for key in ("euler_src", "euler_is_in", "euler_reset", "in_pos")]
+    n = raw["in_pos"].shape[0]
+
+    def deep_share(fn):
+        """(deep look-backs, tiles) of one call: the look-backs (row 0 of
+        each tile) that went past the tile before."""
+        torch.cuda.synchronize()
+        ids0, _, deep0 = lookback_counts(dev)
+        fn()
+        torch.cuda.synchronize()
+        ids1, _, deep1 = lookback_counts(dev)
+        return deep1 - deep0, ids1 - ids0
+
+    def composition(v):
+        """What the fused ancestor sum replaces: gather, sign, K2, gather."""
+        ev = v.index_select(-1, euler[0])
+        q = segmented_cumsum(torch.where(euler[1], ev, -ev), euler[2])
+        return q.index_select(-1, euler[3])
+
+    k2_rows = {}
+    cases = (("nodes", segmented_cumsum, segmented_cumsum_twin, raw["seg_root"], 1),
+             ("euler", segmented_cumsum, segmented_cumsum_twin, raw["euler_reset"], 1),
+             ("ancestor", ancestor_sums, ancestor_sums_twin, None, 0))
+    for name, kernel, twin, reset, scan in cases:
+        x = torch.rand((7, reset.shape[0] if scan else n), device=dev, generator=g) - 0.3
+        args = (x, reset) if scan else (x, *euler)
+        got = kernel(*args)
+        want = twin(*args)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-        k2_err = max(k2_err, (got - want).abs().max().item())
-        ms = cuda_time_ms(lambda: segmented_cumsum(x, reset), 20)
-        plain = cuda_time_ms(lambda: segmented_cumsum_twin(x, reset), 5)
-        # x and the resets read once, the scan written once; one add a value
-        bms, by = bound(x.numel() * 8 + reset.numel() * reset.element_size(), x.numel())
-        k2_rows[name] = (ms, plain, bms, by)
-        log(f"K2 {name} {tuple(x.shape)}: within rtol 1e-5 / atol 1e-4 of twin "
-            f"(max |diff| {k2_err:.3g}); kernel {ms:.3f} ms, twin {plain:.3f} ms, "
-            f"bound {bms:.4f} ms ({by})")
-    del raw, x, got, want
-    kernels["K2"] = {
-        "name": "segmented_cumsum", "route": "cuda",
-        "source": "stereomatch_tpu_torch/csrc/seg_scan.cu",
-        "replaces": "stereomatch_tpu/ops/mst_scan_pallas.py:118",
-        "max_abs_err": k2_err, "ms": k2_rows["euler"][0], "plain_ms": k2_rows["euler"][1],
-        "bound_ms": k2_rows["euler"][2], "bound_by": k2_rows["euler"][3], "library_ms": None,
-    }
+        err = (got - want).abs().max().item()
+        if not scan:  # and against the composition it replaces, on the card
+            torch.testing.assert_close(got, composition(x), rtol=1e-5, atol=1e-4)
+        del got, want
+        deep, tiles = deep_share(lambda: kernel(*args))
+        nk = device_kernels(lambda: kernel(*args))
+        if nk != 1:
+            raise AssertionError(f"K2 {name}: {nk} device kernels a call, not one")
+        ms = cuda_time_ms(lambda: kernel(*args), 20)
+        plain = cuda_time_ms(lambda: twin(*args), 5)
+        comp = None if scan else cuda_time_ms(lambda: composition(x), 20)
+        if scan:  # x and the resets read once, the scan written once; one add a value
+            nbytes, nops = x.numel() * 8 + reset.numel(), x.numel()
+        else:  # v, euler_src, euler_is_in, euler_reset read once, out written once
+            m = euler[0].numel()
+            nbytes, nops = x.numel() * 8 + m * (8 + 1 + 1), 7 * m
+        bms, by = bound(nbytes, nops)
+        k2_rows[name] = (ms, plain, bms, by, err)
+        log(f"K2 {name} {tuple(x.shape)}: within rtol 1e-5 / atol 1e-4 of its twin "
+            f"(max |diff| {err:.3g}); kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+            f"{bms / ms:.1%} of it), twin {plain:.3f} ms"
+            + ("" if comp is None else f", the composition it replaces {comp:.4f} ms")
+            + f"; look-back past the tile before in {deep} of {tiles} tiles ({deep / tiles:.1%}); "
+            f"one device kernel a call (profiler)")
+    del raw, x, euler
+
+    def k2_entry(name, row):
+        ms, plain, bms, by, err = k2_rows[row]
+        return {"name": name, "route": "cuda", "source": "stereomatch_tpu_torch/csrc/seg_scan.cu",
+                "replaces": "stereomatch_tpu/ops/mst_scan_pallas.py:118", "max_abs_err": err,
+                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+    kernels["K2"] = k2_entry("segmented_cumsum", "euler")
+    kernels["K2"]["max_abs_err"] = max(k2_rows["euler"][4], k2_rows["nodes"][4])
+    kernels["K2a"] = k2_entry("ancestor_sums", "ancestor")
 
     # ---- the slice: the server's main path, counted ----
     servers = {
@@ -383,7 +447,7 @@ def main() -> int:
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))
     if from_jax:
         raise AssertionError(f"jax or the JAX package was imported: {from_jax}")
-    for k in ("K1", "K2"):
+    for k in ("K1", "K2", "K2a"):
         counts = {path: c[k] for path, c in by_path.items()}
         if min(counts.values()) <= 0:
             raise AssertionError(f"{k} was not launched on every path: {counts}")
@@ -391,7 +455,7 @@ def main() -> int:
         kernels[k]["launches_by_path"] = counts
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [kernels["K1"], kernels["K2"]]}))
+    print(json.dumps({"kernels": [kernels["K1"], kernels["K2"], kernels["K2a"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

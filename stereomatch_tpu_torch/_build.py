@@ -74,7 +74,8 @@ def _load_with_nvcc(verbose: bool, build_dir: Path = BUILD_DIR):
 
 @functools.cache
 def load_kernels(verbose: bool = False):
-    """The compiled kernel module (`sgbm_aggregate`, `seg_scan`), built on
-    the first call in this process. Raises if the build fails."""
+    """The compiled kernel module (`sgbm_aggregate`; `seg_scan`,
+    `ancestor_sums` and `seg_scan_plan`), built on the first call in this
+    process. Raises if the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return _load_with_ninja(verbose) if shutil.which("ninja") else _load_with_nvcc(verbose)

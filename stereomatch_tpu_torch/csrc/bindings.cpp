@@ -7,6 +7,8 @@
 #include <torch/extension.h>
 
 #include <cstdint>
+#include <initializer_list>
+#include <tuple>
 #include <vector>
 
 #include <ATen/cuda/CUDAContext.h>
@@ -40,32 +42,66 @@ void sgbm_aggregate(const at::Tensor& cost, at::Tensor s, const std::vector<int6
                         dx.data(), (float)p1, (float)p2, at::cuda::getCurrentCUDAStream());
 }
 
-void seg_scan(const at::Tensor& x, const at::Tensor& reset, at::Tensor out,
-              at::Tensor agg_v, at::Tensor agg_f, at::Tensor nc_end, at::Tensor carry) {
-  const std::initializer_list<const at::Tensor*> operands = {&x,     &reset,  &out,  &agg_v,
-                                                             &agg_f, &nc_end, &carry};
-  for (const at::Tensor* t : operands) check_cuda_contig(*t, "seg_scan operand");
+std::tuple<int64_t, int64_t> plan(int64_t k, int64_t m) {
+  TORCH_CHECK(k >= 0 && k < (1 << 30) && m >= 0, "bad K2 shape (", k, ", ", m, ")");
+  const SegScanPlan p = seg_scan_plan((int)k, m);
+  TORCH_CHECK(p.ids < (int64_t(1) << 31), "K2 call too large: ", p.ids, " tiles");
+  return {p.ids, p.words};
+}
+
+// K2's workspace: int64 words on x's device, as many as the call's plan
+unsigned long long* check_workspace(const at::Tensor& ws, const at::Tensor& x, int64_t k,
+                                    int64_t m, int64_t epoch) {
+  check_cuda_contig(ws, "ws");
+  TORCH_CHECK(ws.scalar_type() == at::kLong && ws.device() == x.device(), "bad K2 workspace");
+  TORCH_CHECK(ws.numel() >= std::get<1>(plan(k, m)), "K2 workspace too small");
+  TORCH_CHECK(epoch >= 1 && epoch < (int64_t(1) << 30), "K2 epoch out of range: ", epoch);
+  return reinterpret_cast<unsigned long long*>(ws.data_ptr<int64_t>());
+}
+
+void seg_scan(const at::Tensor& x, const at::Tensor& reset, at::Tensor out, const at::Tensor& ws,
+              int64_t id_base, int64_t epoch) {
+  for (const at::Tensor* t : std::initializer_list<const at::Tensor*>{&x, &reset, &out})
+    check_cuda_contig(*t, "seg_scan operand");
   TORCH_CHECK(x.dim() == 2 && x.scalar_type() == at::kFloat, "x must be (K, M) float32");
   TORCH_CHECK(out.sizes() == x.sizes() && out.scalar_type() == at::kFloat, "bad out");
   TORCH_CHECK(reset.dim() == 1 && reset.size(0) == x.size(1) &&
                   reset.scalar_type() == at::kByte, "reset must be (M,) uint8");
-  const int64_t k = x.size(0), m = x.size(1), nb = (m + 255) / 256;
-  TORCH_CHECK(k <= 65535, "x may have at most 65535 rows (the grid's y extent), got ", k);
-  TORCH_CHECK(agg_v.numel() == k * nb && carry.numel() == k * nb && agg_f.numel() == k * nb &&
-                  nc_end.numel() == k * nb, "scratch must hold K * ceil(M / 256) entries");
-  TORCH_CHECK(agg_v.scalar_type() == at::kFloat && carry.scalar_type() == at::kFloat &&
-                  agg_f.scalar_type() == at::kByte && nc_end.scalar_type() == at::kInt,
-              "bad scratch dtypes");
+  const int64_t k = x.size(0), m = x.size(1);
+  unsigned long long* w = check_workspace(ws, x, k, m, epoch);
   const c10::cuda::CUDAGuard guard(x.device());
   seg_scan_launch(x.data_ptr<float>(), reset.data_ptr<uint8_t>(), out.data_ptr<float>(),
-                  agg_v.data_ptr<float>(), agg_f.data_ptr<uint8_t>(),
-                  nc_end.data_ptr<int32_t>(), carry.data_ptr<float>(), (int)k, m,
+                  (int)k, m, w, (unsigned long long)id_base, (uint32_t)epoch,
                   at::cuda::getCurrentCUDAStream());
+}
+
+void ancestor_sums(const at::Tensor& v, const at::Tensor& src, const at::Tensor& is_in,
+                   const at::Tensor& reset, at::Tensor out, const at::Tensor& ws,
+                   int64_t id_base, int64_t epoch) {
+  for (const at::Tensor* t :
+       std::initializer_list<const at::Tensor*>{&v, &src, &is_in, &reset, &out})
+    check_cuda_contig(*t, "ancestor_sums operand");
+  TORCH_CHECK(v.dim() == 2 && v.scalar_type() == at::kFloat, "v must be (K, N) float32");
+  TORCH_CHECK(out.sizes() == v.sizes() && out.scalar_type() == at::kFloat, "bad out");
+  const int64_t k = v.size(0), n = v.size(1), m = src.numel();
+  TORCH_CHECK(n < (int64_t(1) << 31), "at most 2^31 - 1 nodes");
+  TORCH_CHECK(src.dim() == 1 && src.scalar_type() == at::kLong, "euler_src must be (M,) int64");
+  for (const at::Tensor* t : {&is_in, &reset})
+    TORCH_CHECK(t->dim() == 1 && t->size(0) == m && t->scalar_type() == at::kByte,
+                "euler_is_in and euler_reset must be (M,) uint8");
+  unsigned long long* w = check_workspace(ws, v, k, m, epoch);
+  const c10::cuda::CUDAGuard guard(v.device());
+  ancestor_sums_launch(v.data_ptr<float>(), src.data_ptr<int64_t>(), is_in.data_ptr<uint8_t>(),
+                       reset.data_ptr<uint8_t>(), out.data_ptr<float>(), (int)k, n, m, w,
+                       (unsigned long long)id_base, (uint32_t)epoch,
+                       at::cuda::getCurrentCUDAStream());
 }
 
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("sgbm_aggregate", &sgbm_aggregate, "K1: S += sum of Lr over the given directions");
+  m.def("seg_scan_plan", &plan, "K2: (tile ids, workspace words) of a (K, M) call");
   m.def("seg_scan", &seg_scan, "K2: segmented inclusive prefix sum along rows");
+  m.def("ancestor_sums", &ancestor_sums, "K2 with the Euler ancestor-sum gathers fused");
 }

@@ -17,8 +17,27 @@ void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, in
 
 // K2 (seg_scan.cu): inclusive segmented prefix sum of each row of x (k, m)
 // float32, segments restarting where reset (m,) is nonzero, in 256-element
-// sub-blocks. Scratch: agg_v, carry (k, nb) float32; agg_f (k, nb) uint8;
-// nc_end (k, nb) int32, nb = ceil(m / 256).
-void seg_scan_launch(const float* x, const uint8_t* reset, float* out, float* agg_v,
-                     uint8_t* agg_f, int32_t* nc_end, float* carry, int k, int64_t m,
+// sub-blocks; one single-pass launch. The caller keeps one workspace `ws`
+// per stream: at least seg_scan_plan(k, m).words 64-bit words, zero when
+// first allocated and never cleared between calls. Each call takes the
+// next epoch (1 .. 2^30 - 1; zero the workspace before an epoch comes
+// round again) and id_base = the tile ids (seg_scan_plan(...).ids) that
+// earlier calls on this workspace took. ws[1] and ws[2] count the look-
+// backs (row 0 of each tile) and those that went past the tile before.
+struct SegScanPlan {
+  int64_t ids;    // tile ids the call takes (blocks it launches)
+  int64_t words;  // workspace words it needs
+};
+SegScanPlan seg_scan_plan(int k, int64_t m);
+void seg_scan_launch(const float* x, const uint8_t* reset, float* out, int k, int64_t m,
+                     unsigned long long* ws, unsigned long long id_base, uint32_t epoch,
                      cudaStream_t stream);
+
+// K2's ancestor-sum entry: out (k, n) = the in-event values of the
+// segmented scan of +-v[:, src[j]] (minus where is_in[j] is 0) over the m
+// events, stored at out[:, src[j]]; every node 0 <= src < n < 2^31 has one
+// in-event. Same workspace protocol as seg_scan_launch.
+void ancestor_sums_launch(const float* v, const int64_t* src, const uint8_t* is_in,
+                          const uint8_t* reset, float* out, int k, int64_t n, int64_t m,
+                          unsigned long long* ws, unsigned long long id_base, uint32_t epoch,
+                          cudaStream_t stream);

@@ -36,7 +36,7 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def forest_dict_from_numpy(raw: dict, device: torch.device | str = "cpu") -> dict:
+def forest_dict_from_numpy(raw: dict, device: torch.device | str = "cuda") -> dict:
     """The port's raw forest dict (what `_view_forest` returns, and what the
     video server chains) from the numpy copy of a JAX `build_forest_device`
     dict. Its capacities are checked here, as `_view_forest` checks its own
@@ -50,14 +50,14 @@ def forest_dict_from_numpy(raw: dict, device: torch.device | str = "cpu") -> dic
 
 
 def forest_from_numpy(raw: dict, height: int, width: int, tmax: int,
-                      device: torch.device | str = "cpu") -> ForestArrays:
+                      device: torch.device | str = "cuda") -> ForestArrays:
     """ForestArrays from the numpy copy of the JAX `build_forest_device`
     dict ({name: np.asarray(array)}); the JAX scan maps are not needed."""
     fields = {k: _tensor(raw[k], device) for k in ForestArrays._fields if k in raw}
     return ForestArrays(**fields, num_trees=tmax, height=height, width=width)
 
 
-def key_from_jax(key, device: torch.device | str = "cpu") -> torch.Tensor:
+def key_from_jax(key, device: torch.device | str = "cuda") -> torch.Tensor:
     """The port's key (int64 (2,)) from a raw JAX key (uint32[2])."""
     k = np.asarray(key)
     if k.shape != (2,) or k.dtype != np.uint32:

@@ -5,8 +5,9 @@ Every tree-edge weight is exp(-gamma * colour difference), so weight
 products along tree paths telescope and the reference's two tree passes
 become prefix sums: the leaf-to-root pass is a subtree sum (a contiguous
 node range) and the root-to-leaf pass an ancestor sum (Euler +enter/-exit
-prefix). Both run through `segmented_cumsum` (kernel K2 on CUDA, its twin
-on CPU) with segments restarting at `seg_root` / `euler_reset`. Segment
+prefix). Both run through kernel K2 on CUDA (`segmented_cumsum`, and
+`ancestor_sums` with the Euler gathers fused), their twins on CPU, with
+segments restarting at `seg_root` / `euler_reset`. Segment
 depth ranges are bounded by `max_log_range`, and `carry_iters` rounds of
 cross-cut carry injection restore aggregation across segment cuts.
 
@@ -22,7 +23,7 @@ import torch
 
 from ..config import MSTConfig
 from .. import random as trandom
-from .mst_scan_cuda import segmented_cumsum
+from .mst_scan_cuda import ancestor_sums, segmented_cumsum
 
 __all__ = [
     "ForestArrays",
@@ -72,10 +73,9 @@ def _subtree_sums(t: torch.Tensor, f: ForestArrays) -> torch.Tensor:
 
 
 def _ancestor_sums(v: torch.Tensor, f: ForestArrays) -> torch.Tensor:
-    """Sum over in-segment ancestors-or-self, via the Euler +in/-out prefix."""
-    ev = v.index_select(-1, f.euler_src)
-    q = segmented_cumsum(torch.where(f.euler_is_in, ev, -ev), f.euler_reset)
-    return q.index_select(-1, f.in_pos)
+    """Sum over in-segment ancestors-or-self, via the Euler +in/-out prefix
+    (one K2 launch with its gathers fused on CUDA)."""
+    return ancestor_sums(v, f.euler_src, f.euler_is_in, f.euler_reset, f.in_pos)
 
 
 def tree_filter(c_node: torch.Tensor, f: ForestArrays, carry_iters: int = 2) -> torch.Tensor:
@@ -187,7 +187,7 @@ def labels_to_disparity(a, b, c, f: ForestArrays, max_disp: int) -> torch.Tensor
     return img.reshape(f.height, f.width)
 
 
-def refine_deltas(max_disp: int, start: float | None = None, device="cpu"):
+def refine_deltas(max_disp: int, start: float | None = None, device="cuda"):
     """Annealed refinement ladder: (deltas_d, deltas_n) float32, the
     disparity delta halving from Dmax/2 (or `start`) while > 0.1 with the
     normal delta halving alongside."""

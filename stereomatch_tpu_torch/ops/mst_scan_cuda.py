@@ -1,5 +1,6 @@
 """Kernel K2, the segmented prefix sum of the 3DMST tree filter
-(csrc/seg_scan.cu), with its plain PyTorch twin.
+(csrc/seg_scan.cu), and its ancestor-sum entry, each with its plain
+PyTorch twin.
 
 K2 replaces `stereomatch_tpu/ops/mst_scan_pallas.py::segmented_cumsum_pallas`
 (and the XLA scan `ops/mst.py::_segmented_cumsum_mm` it stands in for).
@@ -11,15 +12,94 @@ Euler events would not keep the float32 conditioning `tree_filter`
 depends on. Kernel and twin sum in different orders inside a block and
 across blocks, so they agree to float32 rounding (rtol 1e-5, atol 1e-4,
 the JAX package's own bound for its two scans).
+
+K2 is one single-pass launch a call: its tiles pass the open segment on
+by a decoupled look-back through a workspace that belongs to the caller's
+stream (`_workspace`), is allocated once (and grown) and never cleared
+between calls, so a call allocates only its output and never syncs.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["SCAN_BLOCK", "segmented_cumsum", "segmented_cumsum_twin"]
+__all__ = ["SCAN_BLOCK", "segmented_cumsum", "segmented_cumsum_twin", "ancestor_sums",
+           "ancestor_sums_twin", "lookback_counts"]
 
 SCAN_BLOCK = 256
+_EPOCHS = 1 << 30  # the kernel's epoch field; 0 marks a word as never written
+
+
+class _Workspace:
+    """K2's per-stream state: int64 words (an id counter, two look-back
+    counts, the tiles' published words), the tile ids earlier calls took
+    and the last call's epoch."""
+
+    def __init__(self, words: int, device: torch.device):
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.base = 0
+        self.epoch = 0
+
+
+_WORKSPACES: dict[tuple[torch.device, int], _Workspace] = {}
+
+
+def _workspace(device: torch.device, words: int) -> _Workspace:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.words.numel() < words:
+        # a fresh zero workspace; the old one is freed in stream order
+        ws = _WORKSPACES[key] = _Workspace(
+            max(words, 0 if ws is None else 2 * ws.words.numel()), device)
+    ws.epoch += 1
+    if ws.epoch == _EPOCHS:  # a word of this epoch may be left from 2^30 calls ago
+        ws.words.zero_()
+        ws.base, ws.epoch = 0, 1
+    return ws
+
+
+def _launch(kernel, k: int, m: int, device: torch.device, *operands) -> None:
+    """One K2 launch on the current stream, with that stream's workspace."""
+    from .._build import load_kernels
+
+    ext = load_kernels()
+    ids, words = ext.seg_scan_plan(k, m)
+    ws = _workspace(device, words)
+    getattr(ext, kernel)(*operands, ws.words, ws.base, ws.epoch)
+    ws.base += ids
+
+
+def lookback_counts(device: torch.device | str = "cuda") -> tuple[int, int, int]:
+    """(tile ids taken, look-backs, look-backs that went past the tile
+    before) of the current stream's K2 workspace since it was allocated;
+    the look-backs are row 0's of each tile. Reads the device (a sync)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    ws = _WORKSPACES.get((dev, torch.cuda.current_stream(dev).cuda_stream))
+    return (0, 0, 0) if ws is None else tuple(ws.words[:3].tolist())
+
+
+def _check_mask(name: str, t: torch.Tensor, m: int, device: torch.device) -> torch.Tensor:
+    """t as the kernel reads it, a contiguous (m,) uint8 on `device`."""
+    if t.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"{name} must be bool or uint8, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the values on {device}")
+    if t.shape != (m,):
+        raise ValueError(f"{name} must have shape ({m},), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
+
+
+def _check_values(name: str, x: torch.Tensor) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"K2 takes CUDA (or CPU) tensors, got one on {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def segmented_cumsum_twin(x: torch.Tensor, reset: torch.Tensor) -> torch.Tensor:
@@ -61,34 +141,55 @@ def segmented_cumsum(x: torch.Tensor, reset: torch.Tensor) -> torch.Tensor:
     tensor runs the twin. `segmented_cumsum.launches` counts launches."""
     if x.device.type == "cpu":
         return segmented_cumsum_twin(x, reset)
-    if not x.is_cuda:
-        raise ValueError(f"K2 takes CUDA (or CPU) tensors, got one on {x.device}")
+    _check_values("x", x)
     m = x.shape[-1]
-    if x.dtype != torch.float32:
-        raise TypeError(f"x must be float32, got {x.dtype}")
-    if reset.dtype not in (torch.bool, torch.uint8):
-        raise TypeError(f"reset must be bool or uint8, got {reset.dtype}")
-    if reset.device != x.device:
-        raise ValueError(f"reset is on {reset.device}, x on {x.device}")
-    if reset.shape != (m,):
-        raise ValueError(f"reset must have shape ({m},), got {tuple(reset.shape)}")
-    if not (x.is_contiguous() and reset.is_contiguous()):
-        raise ValueError("x and reset must be contiguous")
-    from .._build import load_kernels
-
-    ext = load_kernels()
+    r8 = _check_mask("reset", reset, m, x.device)
     x2 = x.reshape(-1, m)
-    k = x2.shape[0]
-    nb = -(-m // SCAN_BLOCK)
     out = torch.empty_like(x2)
-    agg_v = torch.empty((k, nb), dtype=torch.float32, device=x.device)
-    carry = torch.empty_like(agg_v)
-    agg_f = torch.empty((k, nb), dtype=torch.uint8, device=x.device)
-    nc_end = torch.empty((k, nb), dtype=torch.int32, device=x.device)
-    r8 = reset.view(torch.uint8) if reset.dtype == torch.bool else reset
-    ext.seg_scan(x2, r8, out, agg_v, agg_f, nc_end, carry)
+    _launch("seg_scan", x2.shape[0], m, x.device, x2, r8, out)
     segmented_cumsum.launches += 1
     return out.reshape(x.shape)
 
 
 segmented_cumsum.launches = 0
+
+
+def ancestor_sums_twin(v: torch.Tensor, euler_src: torch.Tensor, euler_is_in: torch.Tensor,
+                       euler_reset: torch.Tensor, in_pos: torch.Tensor) -> torch.Tensor:
+    """Sum over in-segment ancestors-or-self of v (..., N): gather v into
+    Euler order, +v at in-events and -v at out-events, scan, read each
+    node's in-event."""
+    ev = v.index_select(-1, euler_src)
+    q = segmented_cumsum_twin(torch.where(euler_is_in, ev, -ev), euler_reset)
+    return q.index_select(-1, in_pos)
+
+
+def ancestor_sums(v: torch.Tensor, euler_src: torch.Tensor, euler_is_in: torch.Tensor,
+                  euler_reset: torch.Tensor, in_pos: torch.Tensor) -> torch.Tensor:
+    """`ancestor_sums_twin` as one K2 launch for a CUDA tensor: the kernel
+    gathers +-v on its loads and stores each in-event's scan at its node
+    (in_pos[euler_src[j]] == j at every in-event, so in_pos is not read);
+    the (..., 2N) scan never reaches device memory. v: (..., N) float32;
+    euler_src (2N,) int64 with every node's one in-event; euler_is_in and
+    euler_reset (2N,) bool or uint8. A CPU tensor runs the twin.
+    `ancestor_sums.launches` counts launches."""
+    if v.device.type == "cpu":
+        return ancestor_sums_twin(v, euler_src, euler_is_in, euler_reset, in_pos)
+    _check_values("v", v)
+    m = euler_src.shape[0]
+    if euler_src.dtype != torch.int64 or euler_src.shape != (m,):
+        raise TypeError(f"euler_src must be (2N,) int64, got {euler_src.dtype}"
+                        f"{list(euler_src.shape)}")
+    if euler_src.device != v.device or not euler_src.is_contiguous():
+        raise ValueError(f"euler_src must be contiguous on {v.device}")
+    is_in = _check_mask("euler_is_in", euler_is_in, m, v.device)
+    r8 = _check_mask("euler_reset", euler_reset, m, v.device)
+    n = v.shape[-1]
+    v2 = v.reshape(-1, n)
+    out = torch.empty_like(v2)
+    _launch("ancestor_sums", v2.shape[0], m, v.device, v2, euler_src, is_in, r8, out)
+    ancestor_sums.launches += 1
+    return out.reshape(v.shape)
+
+
+ancestor_sums.launches = 0

@@ -49,12 +49,16 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def PRNGKey(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
+def PRNGKey(seed: int, device: torch.device | str = "cuda") -> torch.Tensor:
     """Raw key for an int32 seed, as ``jax.random.PRNGKey`` builds it."""
     seed = int(seed)
     if not -(2**31) <= seed < 2**31:
         raise ValueError(f"seed {seed} does not fit int32 (jax's default seed type)")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    # device fills: a host-to-device copy of the seed (as `key[1] = seed`
+    # makes on the card) would sync the stream
+    key = torch.zeros(2, dtype=torch.int64, device=device)
+    key[1:].fill_(seed & _M32)
+    return key
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:

@@ -257,7 +257,7 @@ def compile_sgbm_mst_server(
 
     def submit_pair(left_bgr: np.ndarray, right_bgr: np.ndarray, seed: int | None = None) -> int:
         s = server._next if seed is None else seed
-        return server.submit(left_bgr, right_bgr, trandom.PRNGKey(s))
+        return server.submit(left_bgr, right_bgr, trandom.PRNGKey(s, server.device))
 
     server.submit_pair = submit_pair  # type: ignore[attr-defined]
     return server
@@ -346,7 +346,7 @@ class VideoStreamServer(StereoStreamServer):
 
     def submit_pair(self, left_bgr, right_bgr, seed: int | None = None) -> int:
         i = self._next
-        key = trandom.PRNGKey(i if seed is None else seed)
+        key = trandom.PRNGKey(i if seed is None else seed, self.device)
         keyframe = self._prev is None or (
             self.reseed_every and self._since_key >= self.reseed_every
         )

@@ -104,9 +104,14 @@ def test_render_sequence_bytes_equal_jax(seed, n, h, w, d, drift):
     ("models.mst", "mst_stereo_seeded"),
     ("serving", "compile_sgbm_mst_server"),
     ("serving", "compile_mst_video_server"),
+    ("random", "PRNGKey"),
+    ("interop", "forest_dict_from_numpy"),
+    ("interop", "forest_from_numpy"),
+    ("interop", "key_from_jax"),
+    ("ops.mst", "refine_deltas"),
 ])
 def test_entry_points_default_to_cuda(module, name):
-    """A public entry point runs on the card unless the caller asks for
-    another device."""
+    """A public entry point, and every public function that makes tensors,
+    runs on the card unless the caller asks for another device."""
     fn = getattr(importlib.import_module(f"stereomatch_tpu_torch.{module}"), name)
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -11,7 +11,12 @@ is exact, so K1 equals its twin bit for bit; on other costs the two agree
 to float32 reassociation of the sum over directions (rtol 1e-6: two orders
 of a sum of n <= 8 non-negative terms differ by at most 2 (n - 1) 2^-24 of
 the sum). K2 agrees with its twin to rtol 1e-5 / atol 1e-4: both use the
-same 256-element blocks but sum in different orders.
+same 256-element blocks but sum in different orders; on integer-valued
+inputs every partial sum is exact and they agree bit for bit. K2 is one
+launch a call, whose tiles pass the open segment on by a look-back through
+a per-stream workspace that is never cleared; the tests below run it where
+the look-back goes deep (long segments), across calls and sizes that
+reuse the workspace, and with the ancestor sum's gathers fused.
 """
 
 import pathlib
@@ -22,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum, segmented_cumsum_twin
+from stereomatch_tpu_torch.ops.mst_scan_cuda import (
+    ancestor_sums, ancestor_sums_twin, lookback_counts, segmented_cumsum, segmented_cumsum_twin,
+)
 from stereomatch_tpu_torch.ops.sgbm import aggregate_8path
 from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
 
@@ -96,20 +103,170 @@ def test_k1_wrapper_rejects(cuda):
     assert aggregate_8path_cuda.launches == before  # nothing to launch
 
 
+def _resets(rng, m, mean_seg):
+    """reset[0] and, if mean_seg, about one reset per mean_seg elements."""
+    reset = rng.random(m) < 1.0 / mean_seg if mean_seg else np.zeros(m, bool)
+    reset[0] = True
+    return torch.from_numpy(reset)
+
+
+# m < one 1024-element tile, ragged tails (m not a multiple of 4, 8, 256
+# or 1024), k = 1 (its own one-row tiles), 7 (row groups of 4 and 3) and
+# 13 (four row groups), and
+# look-back that runs deep: one segment over the whole row (None), and
+# m = 3,000,000 with mean segment 100,000
+K2_CASES = [(1000, 7, 1), (100000, 40, 7), (300000, 5000, 7), (257, 3, 2), (256, 256, 3),
+            (1, None, 1), (5, 2, 7), (2049, None, 7), (100003, 50, 13), (1000001, None, 7),
+            (2000002, None, 1), (3000000, 100000, 7), (3000000, 100000, 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "m,mean_seg,k", [(1000, 7, 1), (100000, 40, 7), (300000, 5000, 7), (257, 3, 2), (256, 256, 3)]
-)
+@pytest.mark.parametrize("m,mean_seg,k", K2_CASES)
 def test_k2_vs_twin(cuda, m, mean_seg, k):
     rng = np.random.default_rng(1)
-    reset = rng.random(m) < 1.0 / mean_seg
-    reset[0] = True
-    reset = torch.from_numpy(reset)
+    reset = _resets(rng, m, mean_seg)
     x = torch.from_numpy((rng.random((k, m)) - 0.3).astype(np.float32))
     before = segmented_cumsum.launches
     got = segmented_cumsum(x.to(cuda), reset.to(cuda))
     assert segmented_cumsum.launches == before + 1
     torch.testing.assert_close(got.cpu(), segmented_cumsum_twin(x, reset), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,mean_seg,k", K2_CASES)
+def test_k2_integer_values_bitwise(cuda, m, mean_seg, k):
+    """Integer values in [-8, 8]: every partial sum is exact in float32, so
+    the order the look-back adds tiles in cannot show."""
+    rng = np.random.default_rng(4)
+    reset = _resets(rng, m, mean_seg)
+    x = torch.from_numpy(rng.integers(-8, 9, (k, m)).astype(np.float32))
+    got = segmented_cumsum(x.to(cuda), reset.to(cuda))
+    assert torch.equal(got.cpu(), segmented_cumsum_twin(x, reset))
+
+
+@pytest.mark.cuda
+def test_k2_back_to_back_reuses_workspace(cuda):
+    """50 calls in a row on one stream, with no reinitialisation between
+    them: each call's epoch hides the words earlier calls left."""
+    rng = np.random.default_rng(5)
+    m = 300001
+    reset = _resets(rng, m, 20000).to(cuda)
+    xs = torch.from_numpy(rng.integers(-8, 9, (50, 7, m)).astype(np.float32)).to(cuda)
+    before = segmented_cumsum.launches
+    got = [segmented_cumsum(xs[i], reset) for i in range(50)]
+    assert segmented_cumsum.launches == before + 50
+    for i in (0, 1, 17, 48, 49):
+        assert torch.equal(got[i], segmented_cumsum_twin(xs[i], reset))
+    assert torch.equal(torch.stack(got), segmented_cumsum_twin(xs, reset))
+
+
+@pytest.mark.cuda
+def test_k2_interleaved_sizes(cuda):
+    """Two sizes and row counts in turns on one workspace (the larger one
+    first grows it mid-sequence), the plain scan and the ancestor sum
+    alternating."""
+    rng = np.random.default_rng(6)
+    shapes = [(7, 70001, 300), (1, 500000, 30000)]
+    inputs = []
+    for k, m, mean_seg in shapes:
+        reset = _resets(rng, m, mean_seg).to(cuda)
+        x = torch.from_numpy(rng.integers(-8, 9, (k, m)).astype(np.float32)).to(cuda)
+        inputs.append((x, reset, segmented_cumsum_twin(x, reset)))
+    for turn in range(10):
+        x, reset, want = inputs[turn % 2]
+        assert torch.equal(segmented_cumsum(x, reset), want), turn
+    f = _real_forest(cuda, 60, 90)
+    v = torch.from_numpy(rng.integers(-8, 9, (7, f["in_pos"].shape[0])).astype(np.float32)).to(cuda)
+    want_a = ancestor_sums_twin(v, *(f[k] for k in _EULER))
+    for turn in range(6):
+        x, reset, want = inputs[turn % 2]
+        assert torch.equal(segmented_cumsum(x, reset), want), turn
+        assert torch.equal(ancestor_sums(v, *(f[k] for k in _EULER)), want_a), turn
+
+
+@pytest.mark.cuda
+def test_k2_lookback_counts(cuda):
+    """One segment in one row: every tile after the first looks back; the
+    first call on a fresh stream counts its tiles."""
+    from stereomatch_tpu_torch._build import load_kernels
+
+    m = 81920
+    tiles, _ = load_kernels().seg_scan_plan(1, m)
+    reset = _resets(np.random.default_rng(0), m, None).to(cuda)
+    x = torch.ones((1, m), device=cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        got = segmented_cumsum(x, reset)
+        ids, looks, deep = lookback_counts(cuda)
+    assert tiles > 1 and (ids, looks) == (tiles, tiles - 1) and 0 <= deep < tiles
+    assert torch.equal(got.cpu(), torch.arange(1, m + 1, dtype=torch.float32)[None])
+
+
+_EULER = ("euler_src", "euler_is_in", "euler_reset", "in_pos")
+
+
+def _real_forest(cuda, h, w, seed=3):
+    """The production forest of a rendered frame, built on the card."""
+    from stereomatch_tpu_torch.config import production_mst_config
+    from stereomatch_tpu_torch.models.mst import _fused_capacities
+    from stereomatch_tpu_torch.models.sgbm_mst import _view_forest
+    from stereomatch_tpu_torch.synthetic import render_scene
+
+    d = 24
+    cfg = production_mst_config(d, on_tpu=False, min_cc_size=100, c=2000.0,
+                                forest_backend="device")
+    tmax, adj_cap = _fused_capacities(h, w, cfg)
+    scene = render_scene(seed, h, w, d)
+    return _view_forest(torch.from_numpy(scene.left).to(cuda), cfg, tmax, adj_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [7, 1])
+def test_ancestor_sums_vs_twin_real_forest(cuda, k):
+    """The fused ancestor sum on a real 120x160 forest: within the scans'
+    tolerance on float values, bit for bit on integer values; the
+    segmented scan of the node order too."""
+    f = _real_forest(cuda, 120, 160)
+    n = f["in_pos"].shape[0]
+    rng = np.random.default_rng(7)
+    euler = [f[key] for key in _EULER]
+    v = torch.from_numpy((rng.random((k, n)) - 0.3).astype(np.float32)).to(cuda)
+    before = ancestor_sums.launches
+    got = ancestor_sums(v, *euler)
+    assert ancestor_sums.launches == before + 1
+    torch.testing.assert_close(got, ancestor_sums_twin(v, *euler), rtol=1e-5, atol=1e-4)
+    vi = torch.from_numpy(rng.integers(-8, 9, (k, n)).astype(np.float32)).to(cuda)
+    assert torch.equal(ancestor_sums(vi, *euler), ancestor_sums_twin(vi, *euler))
+    assert torch.equal(ancestor_sums(vi[0], *euler), ancestor_sums_twin(vi[0], *euler))
+    assert torch.equal(segmented_cumsum(vi, f["seg_root"]), segmented_cumsum_twin(vi, f["seg_root"]))
+
+
+def _device_kernels(fn):
+    """Names of the device kernels that one call of fn launches, from
+    torch.profiler's CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: the workspace is allocated on the first call
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_k2_one_kernel_per_call(cuda):
+    """Each wrapper call is one device kernel: no memset, no copy, no
+    second phase, for the plain scan and the fused ancestor sum."""
+    f = _real_forest(cuda, 120, 160)
+    n = f["in_pos"].shape[0]
+    x = torch.rand((7, 2 * n), device=cuda)
+    v = torch.rand((7, n), device=cuda)
+    euler = [f[key] for key in _EULER]
+    for fn in (lambda: segmented_cumsum(x, f["euler_reset"]), lambda: ancestor_sums(v, *euler),
+               lambda: segmented_cumsum(v[0], f["seg_root"])):
+        names = _device_kernels(fn)
+        assert len(names) == 1 and "seg_scan_kernel" in names[0], names
 
 
 @pytest.mark.cuda
@@ -126,12 +283,32 @@ def test_k2_wrapper_rejects(cuda):
         segmented_cumsum(torch.zeros((300, 2), device=cuda).t(), r)
 
 
+@pytest.mark.cuda
+def test_ancestor_sums_wrapper_rejects(cuda):
+    v = torch.zeros((2, 150), device=cuda)
+    src = torch.zeros(300, dtype=torch.int64, device=cuda)
+    m = torch.ones(300, dtype=torch.bool, device=cuda)
+    in_pos = torch.zeros(150, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        ancestor_sums(v.double(), src, m, m, in_pos)
+    with pytest.raises(TypeError):
+        ancestor_sums(v, src.int(), m, m, in_pos)
+    with pytest.raises(ValueError, match="shape"):
+        ancestor_sums(v, src, m[:10], m, in_pos)
+    with pytest.raises(ValueError):
+        ancestor_sums(v, src, m, m.cpu(), in_pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        ancestor_sums(torch.zeros((150, 2), device=cuda).t(), src, m, m, in_pos)
+
+
 _NVCC_ROUTE = """
 import sys
 import numpy as np, torch
 from pathlib import Path
 from stereomatch_tpu_torch import _build
-from stereomatch_tpu_torch.ops.mst_scan_cuda import segmented_cumsum, segmented_cumsum_twin
+from stereomatch_tpu_torch.ops.device_forest import build_forest_device
+from stereomatch_tpu_torch.ops.mst_scan_cuda import (
+    ancestor_sums, ancestor_sums_twin, segmented_cumsum, segmented_cumsum_twin)
 from stereomatch_tpu_torch.ops.sgbm import aggregate_8path
 from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
 ext = _build._load_with_nvcc(False, Path(sys.argv[1]))
@@ -146,15 +323,22 @@ reset[0] = True
 x = torch.from_numpy((rng.random((7, 5000)) - 0.3).astype(np.float32))
 got = segmented_cumsum(x.cuda(), reset.cuda())
 torch.testing.assert_close(got.cpu(), segmented_cumsum_twin(x, reset), rtol=1e-5, atol=1e-4)
-assert (aggregate_8path_cuda.launches, segmented_cumsum.launches) == (1, 1)
+wr, wd = (torch.from_numpy(rng.random(s).astype(np.float32) * 90) for s in ((31, 44), (30, 45)))
+raw = build_forest_device(wr.cuda(), wd.cuda(), c=300.0, min_size=4, tmax=2048,
+                          adj_cap=16384)
+euler = [raw[k] for k in ("euler_src", "euler_is_in", "euler_reset", "in_pos")]
+v = torch.from_numpy(rng.integers(-8, 9, (7, 31 * 45)).astype(np.float32)).cuda()
+assert torch.equal(ancestor_sums(v, *euler), ancestor_sums_twin(v, *euler))
+assert (aggregate_8path_cuda.launches, segmented_cumsum.launches, ancestor_sums.launches) == (1, 1, 1)
 """
 
 
 @pytest.mark.cuda
 def test_nvcc_route_builds_both_kernels(cuda, tmp_path):
     """The build route taken where ninja is missing: one nvcc command. In a
-    fresh process (one extension module of a name per process), both
-    wrappers run on the module it builds and agree with their twins."""
+    fresh process (one extension module of a name per process), every
+    wrapper (K1, K2 and K2's ancestor sum) runs on the module it builds and
+    agrees with its twin."""
     out = subprocess.run([sys.executable, "-c", _NVCC_ROUTE, str(tmp_path)],
                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
@@ -165,8 +349,9 @@ def test_nvcc_route_builds_both_kernels(cuda, tmp_path):
 def test_video_temporal_frame_launches_k2_only(cuda, reuse_forest):
     """A temporal frame of the video server runs no SGBM, so K1 is not
     launched; its 2 views x (1 seed tree filter + 2 iterations) x 4 scans
-    launch K2 24 times. On the chained forests (reuse_forest) the frame
-    enqueues without a host sync."""
+    launch K2 24 times: 12 node-order scans and 12 fused ancestor sums. On
+    the chained forests (reuse_forest) the frame enqueues without a host
+    sync."""
     from stereomatch_tpu_torch.config import production_mst_config
     from stereomatch_tpu_torch.serving import compile_mst_video_server
     from stereomatch_tpu_torch.synthetic import render_sequence
@@ -177,7 +362,7 @@ def test_video_temporal_frame_launches_k2_only(cuda, reuse_forest):
     srv = compile_mst_video_server(h, w, cfg=cfg, device=cuda, reuse_forest=reuse_forest,
                                    volume_guided=not reuse_forest)
     srv.collect(srv.submit_pair(seq[0].left, seq[0].right))  # the keyframe
-    k1, k2 = aggregate_8path_cuda.launches, segmented_cumsum.launches
+    k1, k2, k2a = aggregate_8path_cuda.launches, segmented_cumsum.launches, ancestor_sums.launches
     torch.cuda.synchronize()
     if reuse_forest:
         torch.cuda.set_sync_debug_mode("error")
@@ -188,5 +373,5 @@ def test_video_temporal_frame_launches_k2_only(cuda, reuse_forest):
     assert not srv._queue[-1].is_key
     dl, dr = srv.collect(t)
     assert aggregate_8path_cuda.launches == k1
-    assert segmented_cumsum.launches - k2 == 24
+    assert (segmented_cumsum.launches - k2, ancestor_sums.launches - k2a) == (12, 12)
     assert dl.shape == (h, w) and np.isfinite(dl).all() and np.isfinite(dr).all()

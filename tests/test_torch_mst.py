@@ -69,7 +69,7 @@ def _shared_forest(rng, h=48, w=64, delta=4.0, c=800.0, min_size=20):
                               delta=delta, tmax=tmax, adj_cap=8 * tmax)
     fj = device_forest_arrays(raw, h, w, tmax)
     ft = forest_from_numpy({k: np.asarray(v) for k, v in raw.items()
-                            if not isinstance(v, tuple)}, h, w, tmax)
+                            if not isinstance(v, tuple)}, h, w, tmax, "cpu")
     return fj, ft
 
 
@@ -131,7 +131,7 @@ def test_plane_labels_from_disparity(rng):
 
 @pytest.mark.parametrize("start", [None, 2.0, 5.0])
 def test_refine_deltas(start):
-    for wj, wt in zip(jmst.refine_deltas(128, start), tmst.refine_deltas(128, start)):
+    for wj, wt in zip(jmst.refine_deltas(128, start), tmst.refine_deltas(128, start, "cpu")):
         np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
 
 
@@ -142,9 +142,9 @@ def test_candidates_same_key(rng):
     a, b, c = _labels(rng, n, d)
     key = jax.random.PRNGKey(11)
     dj = jmst.refine_deltas(d, 2.0)
-    dt = tmst.refine_deltas(d, 2.0)
+    dt = tmst.refine_deltas(d, 2.0, "cpu")
     cj = jmst.make_candidate_fn(key, jnp.asarray(a), jnp.asarray(b), jnp.asarray(c), fj, d, 2, *dj)
-    ct = tmst.make_candidate_fn(key_from_jax(key), *(torch.from_numpy(x) for x in (a, b, c)),
+    ct = tmst.make_candidate_fn(key_from_jax(key, "cpu"), *(torch.from_numpy(x) for x in (a, b, c)),
                                 ft, d, 2, *dt)
     for j in range(2 + dt[0].shape[0]):
         for w_, g_ in zip(cj(j), ct(j)):
@@ -169,11 +169,11 @@ def test_seeded_optimize_min_cost(rng):
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-4, atol=1e-4)
     kw = dict(max_neighbors=2, iterations=3, refine_start=2.0)
     *_, mc_j = jmst.mst_pms_optimize(key, jv, fj, cfg, init_state=(*lj, mj), **kw)
-    a, b, c, mc_t = tmst.mst_pms_optimize(key_from_jax(key), tv, ft, tcfg, init_state=(*lt, mt), **kw)
+    a, b, c, mc_t = tmst.mst_pms_optimize(key_from_jax(key, "cpu"), tv, ft, tcfg, init_state=(*lt, mt), **kw)
     np.testing.assert_allclose(mc_t.numpy(), np.asarray(mc_j), rtol=1e-3, atol=1e-3)
     assert (mc_t <= mt + 1e-6).all()  # the seed is sticky: costs only drop
     # candidate_chunk evaluates the same candidates with a running min
-    chunked = tmst.mst_pms_optimize(key_from_jax(key), tv, ft, tcfg, init_state=(*lt, mt),
+    chunked = tmst.mst_pms_optimize(key_from_jax(key, "cpu"), tv, ft, tcfg, init_state=(*lt, mt),
                                     candidate_chunk=3, **kw)
     for x, y in zip(chunked, (a, b, c, mc_t)):
         np.testing.assert_array_equal(x.numpy(), y.numpy())

@@ -16,7 +16,7 @@ SEEDS = [0, 1, 5, 123456, -1, 2**31 - 1]
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_key_and_split(seed):
     k = jax.random.PRNGKey(seed)
-    kt = trandom.PRNGKey(seed)
+    kt = trandom.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(np.asarray(k).astype(np.int64), kt.numpy())
     for n in (2, 3, 7, 64):
         np.testing.assert_array_equal(
@@ -29,7 +29,7 @@ def test_fold_in(data):
     k = jax.random.PRNGKey(42)
     np.testing.assert_array_equal(
         np.asarray(jax.random.fold_in(k, data)).astype(np.int64),
-        trandom.fold_in(trandom.PRNGKey(42), data).numpy(),
+        trandom.fold_in(trandom.PRNGKey(42, "cpu"), data).numpy(),
     )
 
 
@@ -40,7 +40,7 @@ def test_uniform_bits(shape, lo, hi):
     for seed in (0, 9):
         k = jax.random.split(jax.random.PRNGKey(seed))[1]
         want = np.asarray(jax.random.uniform(k, shape, minval=lo, maxval=hi))
-        got = trandom.uniform(key_from_jax(k), shape, lo, hi).numpy()
+        got = trandom.uniform(key_from_jax(k, "cpu"), shape, lo, hi).numpy()
         assert got.dtype == np.float32 and got.shape == want.shape
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
@@ -49,7 +49,7 @@ def test_key_chain_like_the_optimizer():
     """The chain mst_pms_optimize and make_candidate_fn walk: split, split
     into per-iteration keys, split in 3, fold_in, split again."""
     k = jax.random.PRNGKey(3)
-    kt = trandom.PRNGKey(3)
+    kt = trandom.PRNGKey(3, "cpu")
     k, _ = jax.random.split(k)
     kt, _ = trandom.split(kt)
     for ki, kti in zip(jax.random.split(k, 4), trandom.split(kt, 4)):
@@ -68,4 +68,4 @@ def test_bad_seed_and_key():
         trandom.PRNGKey(2**31)
     with pytest.raises(ValueError):
         key_from_jax(np.zeros(3, np.uint32))
-    assert trandom.PRNGKey(0).dtype == torch.int64
+    assert trandom.PRNGKey(0, "cpu").dtype == torch.int64

@@ -85,7 +85,7 @@ def test_temporal_program_matches_jax(scenes):
     prev = js.pipeline(jnp.asarray(a.left), jnp.asarray(a.right), jax.random.PRNGKey(0))
     key = jax.random.PRNGKey(1)
     want = js.refine_pipeline(jnp.asarray(b.left), jnp.asarray(b.right), *prev, key)
-    got = ts.refine_pipeline(_t(b.left), _t(b.right), *map(_t, prev), key_from_jax(key))
+    got = ts.refine_pipeline(_t(b.left), _t(b.right), *map(_t, prev), key_from_jax(key, "cpu"))
     for g, w_ in zip(got, want):
         _close(g.numpy(), w_)
 
@@ -100,15 +100,15 @@ def test_reuse_forest_programs_match_jax_on_jax_forests(scenes, jax_rf_server):
                                   device="cpu")
     k0, k1 = jax.random.PRNGKey(0), jax.random.PRNGKey(1)
     jdl, jdr, jfl, jfr = js.pipeline(jnp.asarray(a.left), jnp.asarray(a.right), k0)
-    tdl, tdr, tfl, tfr = ts.pipeline(_t(a.left), _t(a.right), key_from_jax(k0))
+    tdl, tdr, tfl, tfr = ts.pipeline(_t(a.left), _t(a.right), key_from_jax(k0, "cpu"))
     _close(tdl.numpy(), jdl)
     _close(tdr.numpy(), jdr)
-    fl, fr = (forest_dict_from_numpy(_np_tree(f)) for f in (jfl, jfr))
+    fl, fr = (forest_dict_from_numpy(_np_tree(f), "cpu") for f in (jfl, jfr))
     for k in ("pixel_of_node", "tree_start", "adj_list", "euler_reset"):
         assert torch.equal(tfl[k], fl[k])  # the forest's integers are exact
     want = js.refine_pipeline(jnp.asarray(b.left), jnp.asarray(b.right), jdl, jdr, jfl, jfr, k1)
     got = ts.refine_pipeline(_t(b.left), _t(b.right), _t(jdl), _t(jdr), fl, fr,
-                             key_from_jax(k1))
+                             key_from_jax(k1, "cpu"))
     for g, w_ in zip(got, want):
         _close(g.numpy(), w_)
 
@@ -421,11 +421,11 @@ def test_keyframe_then_temporal_wiring(pair):
     t0, t1 = srv.submit_pair(left, right), srv.submit_pair(left, right)
     dl0, dr0 = srv.collect(t0)
     dl1, _ = srv.collect(t1)
-    direct, _ = srv.refine_pipeline(_t(left), _t(right), _t(dl0), _t(dr0), trandom.PRNGKey(1))
+    direct, _ = srv.refine_pipeline(_t(left), _t(right), _t(dl0), _t(dr0), trandom.PRNGKey(1, "cpu"))
     np.testing.assert_array_equal(dl1, direct.numpy())
     srv.reset()
     dl, _ = srv.collect(srv.submit_pair(left, right, seed=0))
-    np.testing.assert_array_equal(dl, srv.pipeline(_t(left), _t(right), trandom.PRNGKey(0))[0].numpy())
+    np.testing.assert_array_equal(dl, srv.pipeline(_t(left), _t(right), trandom.PRNGKey(0, "cpu"))[0].numpy())
 
 
 def test_video_unported_options_raise():
