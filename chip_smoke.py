@@ -2,26 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the port's Hopper kernels from this checkout, checks each against
-its plain PyTorch twin at the shapes the production frame gives it (K1 on
-the frame's own SGBM cost within float32 reassociation, and bit for bit
-on the same cost rounded to integers; K2's node-order and Euler scans and
-its fused ancestor sum on a real forest within rtol 1e-5 / atol 1e-4),
-times each beside its bound (the ancestor sum also beside the composition
-it replaces, with the share of K2's tiles whose look-back went past the
-tile before, and holds each K2 call to one device kernel in
-torch.profiler's events), then serves 3 frames of a 960x1280
-pair at 128 disparities through
+Builds the port's Hopper kernels and its host forest builder (g++) from
+this checkout, checks each kernel against its plain PyTorch twin at the
+shapes the production frame gives it (K1 on the frame's own SGBM cost
+within float32 reassociation, and bit for bit on the same cost rounded to
+integers, and twice on the same cost bit for bit; K2's node-order and
+Euler scans and its fused ancestor sum on a real device forest at 7 rows,
+and on the host forest of the flat path at its 18 rows, at max_log_range
+4 and 40, within rtol 1e-5 / atol 1e-4), times each beside its bound (the
+ancestor sum also beside the composition it replaces, with the share of
+K2's tiles whose look-back went past the tile before, and holds each K2
+call to one device kernel in torch.profiler's events), then serves 3
+frames of a 960x1280 pair at 128 disparities through
 `stereomatch_tpu_torch.serving.compile_sgbm_mst_server`, with the guided
 and the raw cost volume, and gates the LR-checked left maps on the
 scene's exact ground truth. Then the video path at the same size, through
 `compile_mst_video_server`: the headline deployment (raw volume,
 `reuse_forest`, `reseed_every=3`, scene cuts armed) on a 6-frame moving
 sequence, the guided rebuild-per-frame server on 3 frames, and one hard
-cut (the mirrored scene), whose replay must equal a fresh keyframe. Every
-path's K1 / K2 launches are counted and held to its frame mix. Fails
-(non-zero exit, no result line) on any fault, and when no CUDA device is
-present. Imports nothing of jax or of the JAX package, and asserts that
+cut (the mirrored scene), whose replay must equal a fresh keyframe. Then
+the paths of the host forest and random init at the same size:
+`pipelines.mst_pipeline` (the flat frame, 100 random-init iterations),
+`pipelines.sgbm_mst_pipeline` (the seeded frame on the host forest), and
+`models.mst.mst_stereo_fused` (30 random-init iterations on the device
+forest, the built-in guided volume), each gated on GT. Every path's K1 / K2 launches are
+counted and held to its frame mix. Also reports whether the server gives
+the same maps twice for the same frame and seed. Fails (non-zero exit,
+no result line) on any fault, when the host forest builder falls back
+to its Python stand-in, and when no CUDA device is present. Imports nothing of jax or of the JAX package, and asserts that
 no module of either was loaded. The last stdout line is {"ok": true,
 "device": {...}}; the line before it lists the kernels.
 """
@@ -33,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -54,6 +63,18 @@ TEMPORAL_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.08}
 # frame at 2 iterations: no SGBM, K2 2 x (1 + 2) x 4
 KEY_LAUNCHES = {"K1": 1, "K2": 20, "K2a": 20}
 TEMPORAL_LAUNCHES = {"K1": 0, "K2": 12, "K2a": 12}
+# the host forest and random init (MSTConfig's defaults but for these:
+# the GT battery's c and min_cc_size, tests/test_gt_battery.py)
+FLAT_CFG = dict(max_disp=MAX_DISP, iterations=100, min_cc_size=100, c=2000.0)
+# launches per frame at carry_iters=2 (3 node scans and 3 ancestor sums a
+# tree filter): flat, 2 views x 100 iterations; seeded, 2 views x (the
+# seed's cost + 10 iterations) and one SGBM seed; fused, 2 views x 30
+FLAT_LAUNCHES = {"K1": 0, "K2": 600, "K2a": 600}
+SEEDED_HOST_LAUNCHES = {"K1": 1, "K2": 66, "K2a": 66}
+FUSED_ITERS = 30
+FUSED_LAUNCHES = {"K1": 0, "K2": 180, "K2a": 180}
+# tests/test_device_forest.py::test_mst_stereo_device_backend_absolute_gt
+FUSED_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.10}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -83,14 +104,20 @@ def cuda_time_ms(fn, reps: int) -> float:
 
 def device_kernels(fn) -> int:
     """The device kernels one call of fn launches, from torch.profiler's
-    CUDA events."""
+    CUDA events. A trace with no device event at all lost its events (it
+    happened once in a run of a dozen traces on the H100): it is taken
+    again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+        if count:
+            return count
+    return count
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -101,17 +128,18 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def gate(dl, dr, scene, gates, tag):
+def gate(dl, dr, scene, gates, tag, max_disp=MAX_DISP):
     """LR-check the left map and hold it to the scene's exact GT."""
     from stereomatch_tpu_torch.eval import disparity_metrics
     from stereomatch_tpu_torch.ops.postprocess import lr_consistency
     from stereomatch_tpu_torch.synthetic import scene_eval_mask
 
-    if dl.shape != SHAPE or dr.shape != SHAPE or not (
+    shape = scene.disp_left.shape
+    if dl.shape != shape or dr.shape != shape or not (
             np.isfinite(dl).all() and np.isfinite(dr).all()):
         raise AssertionError(f"{tag}: bad output shape or non-finite values")
     dlc, valid = lr_consistency(torch.from_numpy(dl), torch.from_numpy(dr),
-                                float(MAX_DISP), fill=False)
+                                float(max_disp), fill=False)
     scored = valid & torch.from_numpy(scene_eval_mask(scene))
     mm = disparity_metrics(dlc, torch.from_numpy(scene.disp_left), scored)
     share = scored.double().mean().item()
@@ -119,6 +147,75 @@ def gate(dl, dr, scene, gates, tag):
     if not (share > gates["valid"] and mm["epe"] < gates["epe"] and mm["bad2"] < gates["bad2"]):
         raise AssertionError(f"{tag} misses the GT gates {gates}: {msg}")
     return msg
+
+
+def k2_cases(fr, rows, tag, dev, g):
+    """K2's node scan (rows, N), Euler scan (rows, 2N) and fused ancestor
+    sum (rows, N) on the forest `fr` (a mapping with seg_root, euler_reset,
+    euler_src, euler_is_in and in_pos): each held to its twin, timed beside
+    its bound and its twin, its look-back depth counted and held to one
+    device kernel a call. Returns {case: (ms, twin ms, bound ms, bound_by,
+    max |diff|)}."""
+    from stereomatch_tpu_torch.ops.mst_scan_cuda import (
+        ancestor_sums, ancestor_sums_twin, lookback_counts, segmented_cumsum,
+        segmented_cumsum_twin,
+    )
+
+    euler = [fr[key] for key in ("euler_src", "euler_is_in", "euler_reset", "in_pos")]
+    n = fr["in_pos"].shape[0]
+
+    def deep_share(fn):
+        """(deep look-backs, tiles) of one call: the look-backs (row 0 of
+        each tile) that went past the tile before."""
+        torch.cuda.synchronize()
+        ids0, _, deep0 = lookback_counts(dev)
+        fn()
+        torch.cuda.synchronize()
+        ids1, _, deep1 = lookback_counts(dev)
+        return deep1 - deep0, ids1 - ids0
+
+    def composition(v):
+        """What the fused ancestor sum replaces: gather, sign, K2, gather."""
+        ev = v.index_select(-1, euler[0])
+        q = segmented_cumsum(torch.where(euler[1], ev, -ev), euler[2])
+        return q.index_select(-1, euler[3])
+
+    out = {}
+    cases = (("nodes", segmented_cumsum, segmented_cumsum_twin, fr["seg_root"], 1),
+             ("euler", segmented_cumsum, segmented_cumsum_twin, fr["euler_reset"], 1),
+             ("ancestor", ancestor_sums, ancestor_sums_twin, None, 0))
+    for name, kernel, twin, reset, scan in cases:
+        x = torch.rand((rows, reset.shape[0] if scan else n), device=dev, generator=g) - 0.3
+        args = (x, reset) if scan else (x, *euler)
+        got = kernel(*args)
+        want = twin(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        err = (got - want).abs().max().item()
+        if not scan:  # and against the composition it replaces, on the card
+            torch.testing.assert_close(got, composition(x), rtol=1e-5, atol=1e-4)
+        del got, want
+        deep, tiles = deep_share(lambda: kernel(*args))
+        nk = device_kernels(lambda: kernel(*args))
+        if nk != 1:
+            raise AssertionError(f"K2 {name} ({tag}): {nk} device kernels a call, not one")
+        ms = cuda_time_ms(lambda: kernel(*args), 20)
+        plain = cuda_time_ms(lambda: twin(*args), 5)
+        comp = None if scan else cuda_time_ms(lambda: composition(x), 20)
+        if scan:  # x and the resets read once, the scan written once; one add a value
+            nbytes, nops = x.numel() * 8 + reset.numel(), x.numel()
+        else:  # v, euler_src, euler_is_in, euler_reset read once, out written once
+            m = euler[0].numel()
+            nbytes, nops = x.numel() * 8 + m * (8 + 1 + 1), rows * m
+        bms, by = bound(nbytes, nops)
+        out[name] = (ms, plain, bms, by, err)
+        log(f"K2 {name} {tuple(x.shape)} on the {tag}: within rtol 1e-5 / atol 1e-4 of its twin "
+            f"(max |diff| {err:.3g}); kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+            f"{bms / ms:.1%} of it), twin {plain:.3f} ms"
+            + ("" if comp is None else f", the composition it replaces {comp:.4f} ms")
+            + f"; look-back past the tile before in {deep} of {tiles} tiles ({deep / tiles:.1%}); "
+            f"one device kernel a call (profiler)")
+    return out
 
 
 def counted(run):
@@ -137,11 +234,13 @@ def counted(run):
 
 def expect_launches(tag, got, keys, temporals):
     want = {k: keys * KEY_LAUNCHES[k] + temporals * TEMPORAL_LAUNCHES[k] for k in got}
+    expect_exact(tag, got, want, f"{keys} keyframes + {temporals} temporal frames")
+
+
+def expect_exact(tag, got, want, mix):
     if got != want:
-        raise AssertionError(f"{tag}: launches {got}, expected {want} "
-                             f"for {keys} keyframes and {temporals} temporal frames")
-    log(f"{tag}: launches {got} (K2 calls {got['K2'] + got['K2a']}) = {keys} keyframes + "
-        f"{temporals} temporal frames")
+        raise AssertionError(f"{tag}: launches {got}, expected {want} for {mix}")
+    log(f"{tag}: launches {got} (K2 calls {got['K2'] + got['K2a']}) = {mix}")
 
 
 def serve_video(srv, scenes):
@@ -222,6 +321,77 @@ def video_path(cfg, dev) -> dict:
     return launches
 
 
+def host_forest_paths(scene, dev) -> dict:
+    """The paths of the host forest and random init, on `scene`: the flat
+    frame and the seeded frame through pipelines.py, with a stage
+    breakdown of the flat frame's left view, then mst_stereo_fused; each
+    gated on GT. Returns each path's launch counts."""
+    from stereomatch_tpu_torch import pipelines
+    from stereomatch_tpu_torch import random as trandom
+    from stereomatch_tpu_torch.config import MSTConfig
+    from stereomatch_tpu_torch.models.mst import mst_stereo_fused
+    from stereomatch_tpu_torch.native import build_forest, color_edge_weights
+    from stereomatch_tpu_torch.ops.filters import median3x3
+    from stereomatch_tpu_torch.ops.mst import forest_arrays, mst_pms_optimize
+
+    t_section = time.perf_counter()
+    cfg = MSTConfig(**FLAT_CFG)
+    rgb_l, rgb_r = scene.left[..., ::-1], scene.right[..., ::-1]  # the scenes are BGR
+    launches = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (maps, sec), launches["flat"] = counted(lambda: timed(
+        lambda: pipelines.mst_pipeline(rgb_l, rgb_r, cfg=cfg, seed=0, device=dev)))
+    log(f"flat frame (mst_pipeline, {cfg.iterations} random-init iterations, host forest): "
+        f"{sec:.3f} s, {gate(*maps, scene, GATES, 'flat frame')}")
+    expect_exact("flat", launches["flat"], FLAT_LAUNCHES,
+                 f"2 views x {cfg.iterations} iterations x 3")
+
+    # the flat frame's left view, stage by stage (host clock + sync)
+    stages = {}
+    left = torch.from_numpy(scene.left).to(dev)
+    img, stages["median3x3"] = timed(lambda: median3x3(left))
+    host, stages["image_to_host"] = timed(lambda: img.cpu().numpy())
+    (wr, wd), stages["edge_weights_host"] = timed(lambda: color_edge_weights(host))
+    forest, stages["forest_build_host"] = timed(
+        lambda: build_forest(wr, wd, cfg.c, cfg.min_cc_size, cfg.gamma, cfg.max_log_range))
+    fa, stages["forest_arrays"] = timed(lambda: forest_arrays(forest, dev))
+    vl, _ = pipelines._volumes(rgb_l, rgb_r, None, None, MAX_DISP, dev)
+    kl = trandom.split(trandom.PRNGKey(0, dev))[0]
+    _, stages["optimize_left"] = timed(lambda: mst_pms_optimize(kl, vl, fa, cfg))
+    log("flat_stages_ms " + json.dumps({k: round(v * 1e3, 3) for k, v in stages.items()})
+        + f" ({forest.num_trees} trees, {forest.num_segments} segments)")
+    del left, img, host, fa, vl
+
+    (maps, sec), launches["seeded_host"] = counted(lambda: timed(
+        lambda: pipelines.sgbm_mst_pipeline(rgb_l, rgb_r, cfg=cfg, seed=0, device=dev)))
+    log(f"seeded frame on the host forest (sgbm_mst_pipeline, 10 iterations): {sec:.3f} s, "
+        f"{gate(*maps, scene, GATES, 'seeded host frame')}")
+    expect_exact("seeded_host", launches["seeded_host"], SEEDED_HOST_LAUNCHES,
+                 "1 SGBM seed + 2 views x (1 seed cost + 10 iterations) x 3")
+
+    # the built-in guided volumes, as mst_pipeline makes them, outside the count
+    lv, rv = pipelines._volumes(rgb_l, rgb_r, None, None, MAX_DISP, dev)
+    fcfg = dataclasses.replace(cfg, iterations=FUSED_ITERS)
+    (out, sec), launches["fused_random"] = counted(lambda: timed(lambda: mst_stereo_fused(
+        scene.left, scene.right, lv, rv, fcfg, seed=0, device=dev)))
+    maps = (out.left_disp.cpu().numpy(), out.right_disp.cpu().numpy())
+    del lv, rv, out
+    log(f"fused random-init frame (mst_stereo_fused, {FUSED_ITERS} iterations, device forest, "
+        f"its default 8 neighbour trees): {sec:.3f} s, "
+        f"{gate(*maps, scene, FUSED_GATES, 'fused frame')}")
+    expect_exact("fused_random", launches["fused_random"], FUSED_LAUNCHES,
+                 f"2 views x {FUSED_ITERS} iterations x 3")
+    log(f"host forest and random-init section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -229,20 +399,21 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # a host forest from the Python stand-in is a failed run, not a slow one
+    warnings.filterwarnings("error", message="native forest builder unavailable",
+                            category=RuntimeWarning)
 
     from stereomatch_tpu_torch._build import load_kernels
-    from stereomatch_tpu_torch.config import production_mst_config
+    from stereomatch_tpu_torch.config import MSTConfig, production_mst_config
+    from stereomatch_tpu_torch.native.build import build as build_native
     from stereomatch_tpu_torch.synthetic import render_sequence
-    from stereomatch_tpu_torch.models.mst import _fused_capacities
+    from stereomatch_tpu_torch.models.mst import _fused_capacities, build_view_forest
+    from stereomatch_tpu_torch.ops.mst import refine_deltas
     from stereomatch_tpu_torch.models.sgbm_mst import (
         _default_sgbm_cfg, _gray_from_bgr, _seed_pair, _view_forest,
         _refine_view_given_forest,
     )
     from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
-    from stereomatch_tpu_torch.ops.mst_scan_cuda import (
-        ancestor_sums, ancestor_sums_twin, lookback_counts, segmented_cumsum,
-        segmented_cumsum_twin,
-    )
     from stereomatch_tpu_torch.ops.sgbm import aggregate_8path, sgbm_cost_volume
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
     from stereomatch_tpu_torch import random as trandom
@@ -258,6 +429,9 @@ def main() -> int:
     t0 = time.perf_counter()
     load_kernels()
     log(f"build: {time.perf_counter() - t0:.1f} s (every kernel, from csrc/)")
+    t0 = time.perf_counter()
+    lib = build_native()
+    log(f"build: {time.perf_counter() - t0:.1f} s (the host forest builder, g++: {lib})")
 
     h, w = SHAPE
     t0 = time.perf_counter()
@@ -277,7 +451,7 @@ def main() -> int:
     # reassociation (K1_RTOL); on the same cost rounded to integers every
     # partial sum is exact and they agree bit for bit.
     npaths = sgbm_cfg.num_paths
-    k1_err, k1_rows = 0.0, {}
+    k1_err, k1_rows, k1_twice = 0.0, {}, {}
     for dt in ("float32", "bfloat16"):
         c = sgbm_cost_volume(_gray_from_bgr(left0), _gray_from_bgr(right0),
                              dataclasses.replace(sgbm_cfg, cost_dtype=dt))
@@ -290,6 +464,8 @@ def main() -> int:
         err = (got - want).abs().max().item()
         k1_err = max(k1_err, err)
         same = torch.equal(got, want)
+        # the same cost twice: does K1 give the same S bit for bit?
+        k1_twice[dt] = torch.equal(got, aggregate_8path_cuda(c, p1, p2, npaths))
         del got, want
         ci = c.float().round().to(c.dtype)
         got = aggregate_8path_cuda(ci, p1, p2, npaths)
@@ -320,72 +496,38 @@ def main() -> int:
 
     # ---- K2: the scans on a real forest's resets, (7, N) and (7, 2N) ----
     tmax, adj_cap = _fused_capacities(h, w, cfg)
-    raw = _view_forest(left0, cfg, tmax, adj_cap)
     g = torch.Generator(device=dev).manual_seed(0)
-    euler = [raw[key] for key in ("euler_src", "euler_is_in", "euler_reset", "in_pos")]
-    n = raw["in_pos"].shape[0]
+    k2_rows = k2_cases(_view_forest(left0, cfg, tmax, adj_cap), 7, "device forest", dev, g)
 
-    def deep_share(fn):
-        """(deep look-backs, tiles) of one call: the look-backs (row 0 of
-        each tile) that went past the tile before."""
+    # ---- K2 on the host forest at the flat path's row count ----
+    flat_cfg = MSTConfig(**FLAT_CFG)
+    rows = 8 + int(refine_deltas(MAX_DISP, device=dev)[0].shape[0])  # mst_stereo's 8 neighbours
+    host_rows = {}
+    for delta in (flat_cfg.max_log_range, 40.0):
+        t0 = time.perf_counter()
+        fa = build_view_forest(left0, dataclasses.replace(flat_cfg, max_log_range=delta), dev)
         torch.cuda.synchronize()
-        ids0, _, deep0 = lookback_counts(dev)
-        fn()
-        torch.cuda.synchronize()
-        ids1, _, deep1 = lookback_counts(dev)
-        return deep1 - deep0, ids1 - ids0
-
-    def composition(v):
-        """What the fused ancestor sum replaces: gather, sign, K2, gather."""
-        ev = v.index_select(-1, euler[0])
-        q = segmented_cumsum(torch.where(euler[1], ev, -ev), euler[2])
-        return q.index_select(-1, euler[3])
-
-    k2_rows = {}
-    cases = (("nodes", segmented_cumsum, segmented_cumsum_twin, raw["seg_root"], 1),
-             ("euler", segmented_cumsum, segmented_cumsum_twin, raw["euler_reset"], 1),
-             ("ancestor", ancestor_sums, ancestor_sums_twin, None, 0))
-    for name, kernel, twin, reset, scan in cases:
-        x = torch.rand((7, reset.shape[0] if scan else n), device=dev, generator=g) - 0.3
-        args = (x, reset) if scan else (x, *euler)
-        got = kernel(*args)
-        want = twin(*args)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-        err = (got - want).abs().max().item()
-        if not scan:  # and against the composition it replaces, on the card
-            torch.testing.assert_close(got, composition(x), rtol=1e-5, atol=1e-4)
-        del got, want
-        deep, tiles = deep_share(lambda: kernel(*args))
-        nk = device_kernels(lambda: kernel(*args))
-        if nk != 1:
-            raise AssertionError(f"K2 {name}: {nk} device kernels a call, not one")
-        ms = cuda_time_ms(lambda: kernel(*args), 20)
-        plain = cuda_time_ms(lambda: twin(*args), 5)
-        comp = None if scan else cuda_time_ms(lambda: composition(x), 20)
-        if scan:  # x and the resets read once, the scan written once; one add a value
-            nbytes, nops = x.numel() * 8 + reset.numel(), x.numel()
-        else:  # v, euler_src, euler_is_in, euler_reset read once, out written once
-            m = euler[0].numel()
-            nbytes, nops = x.numel() * 8 + m * (8 + 1 + 1), 7 * m
-        bms, by = bound(nbytes, nops)
-        k2_rows[name] = (ms, plain, bms, by, err)
-        log(f"K2 {name} {tuple(x.shape)}: within rtol 1e-5 / atol 1e-4 of its twin "
-            f"(max |diff| {err:.3g}); kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-            f"{bms / ms:.1%} of it), twin {plain:.3f} ms"
-            + ("" if comp is None else f", the composition it replaces {comp:.4f} ms")
-            + f"; look-back past the tile before in {deep} of {tiles} tiles ({deep / tiles:.1%}); "
-            f"one device kernel a call (profiler)")
-    del raw, x, euler
+        starts = torch.nonzero(fa.seg_root)[:, 0]
+        seg_len = torch.diff(starts, append=starts.new_tensor([fa.seg_root.numel()]))
+        log(f"host forest at max_log_range {delta}: {time.perf_counter() - t0:.2f} s, "
+            f"{fa.num_trees} trees, {starts.numel()} segments, longest {int(seg_len.max())} nodes")
+        host_rows[delta] = k2_cases(fa._asdict(), rows, f"host forest, max_log_range {delta}",
+                                    dev, g)
+        del fa, starts, seg_len
 
     def k2_entry(name, row):
         ms, plain, bms, by, err = k2_rows[row]
+        host = host_rows[flat_cfg.max_log_range][row]
         return {"name": name, "route": "cuda", "source": "stereomatch_tpu_torch/csrc/seg_scan.cu",
-                "replaces": "stereomatch_tpu/ops/mst_scan_pallas.py:118", "max_abs_err": err,
-                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None}
+                "replaces": "stereomatch_tpu/ops/mst_scan_pallas.py:118",
+                "max_abs_err": max([err] + [r[row][4] for r in host_rows.values()]),
+                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+                f"host_forest_{rows}_rows": {"ms": host[0], "plain_ms": host[1],
+                                             "bound_ms": host[2], "bound_by": host[3]}}
 
     kernels["K2"] = k2_entry("segmented_cumsum", "euler")
-    kernels["K2"]["max_abs_err"] = max(k2_rows["euler"][4], k2_rows["nodes"][4])
+    kernels["K2"]["max_abs_err"] = max(kernels["K2"]["max_abs_err"],
+                                       k2_entry("segmented_cumsum", "nodes")["max_abs_err"])
     kernels["K2a"] = k2_entry("ancestor_sums", "ancestor")
 
     # ---- the slice: the server's main path, counted ----
@@ -417,6 +559,14 @@ def main() -> int:
     for mode, ts in frame_s.items():
         log(f"{mode}: seconds per frame {['%.3f' % t for t in ts]}, "
             f"steady {len(ts[1:]) / sum(ts[1:]):.3f} frames/s")
+    # the same frame and seed twice through one server: the same maps?
+    srv = servers["guided"]
+    twice = [srv.collect(srv.submit_pair(sc0.left, sc0.right, seed=0)) for _ in range(2)]
+    maps_same = all(np.array_equal(x, y) for x, y in zip(*twice))
+    maps_diff = max(float(np.abs(x - y).max()) for x, y in zip(*twice))
+    log(f"determinism: K1 twice on the same cost bitwise equal {k1_twice}; the guided server's "
+        f"maps for the same frame and seed twice equal: {maps_same} (max |diff| {maps_diff:.3g})")
+    del twice
 
     # ---- one guided frame again, stage by stage (host clock + sync) ----
     stages = {}
@@ -442,15 +592,18 @@ def main() -> int:
     log("stages_ms " + json.dumps(stages))
     del vl, vr, seed_l, raw
     by_path = {"fused_server": launches, **video_path(cfg, dev)}
+    by_path.update(host_forest_paths(sc0, dev))
 
     # the port imports nothing of jax and nothing of the JAX package
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))
     if from_jax:
         raise AssertionError(f"jax or the JAX package was imported: {from_jax}")
+    # every path was held to its frame mix's launches above (K1 runs only
+    # where a frame takes an SGBM seed); each kernel must have run
     for k in ("K1", "K2", "K2a"):
         counts = {path: c[k] for path, c in by_path.items()}
-        if min(counts.values()) <= 0:
-            raise AssertionError(f"{k} was not launched on every path: {counts}")
+        if sum(counts.values()) <= 0:
+            raise AssertionError(f"{k} was launched on no path: {counts}")
         kernels[k]["launches"] = sum(counts.values())
         kernels[k]["launches_by_path"] = counts
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

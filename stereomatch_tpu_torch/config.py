@@ -122,8 +122,8 @@ class MSTConfig:
     # cost-volume storage dtype for label_cost reads; every aggregation
     # pass stays float32
     volume_dtype: str = "float32"
-    # forest construction: "device" (ops/device_forest.py) is ported;
-    # "host" raises (ROADMAP.md)
+    # forest construction: "host" (native/treebuild.cpp, on the CPU) or
+    # "device" (ops/device_forest.py)
     forest_backend: str = "host"
     # Not read by the port: its segmented scans always run K2
     # (csrc/seg_scan.cu) on CUDA and K2's twin on the CPU. Kept so the

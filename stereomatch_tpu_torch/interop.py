@@ -9,13 +9,17 @@ the caller hands over `np.asarray` copies.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .native import Forest
 from .ops.device_forest import check_forest_capacity
 from .ops.mst import ForestArrays
 
-__all__ = ["forest_dict_from_numpy", "forest_from_numpy", "key_from_jax", "video_state_from_jax"]
+__all__ = ["forest_dict_from_numpy", "forest_from_numpy", "key_from_jax",
+           "native_forest_from_numpy", "video_state_from_jax"]
 
 # the entries of the port's build_forest_device dict: the ForestArrays
 # tensors and three more; the JAX dict also holds its scan maps, which the
@@ -55,6 +59,21 @@ def forest_from_numpy(raw: dict, height: int, width: int, tmax: int,
     dict ({name: np.asarray(array)}); the JAX scan maps are not needed."""
     fields = {k: _tensor(raw[k], device) for k in ForestArrays._fields if k in raw}
     return ForestArrays(**fields, num_trees=tmax, height=height, width=width)
+
+
+def native_forest_from_numpy(fields: dict) -> Forest:
+    """The port's host `native.Forest` from {field: value}, such as
+    `dataclasses.asdict` of a JAX `native.Forest`: arrays as int32 or
+    float32 copies, sizes as ints. `ops.mst.forest_arrays` uploads it."""
+    kw = {}
+    for f in dataclasses.fields(Forest):
+        v = fields[f.name]
+        if f.type == "int":
+            kw[f.name] = int(v)
+        else:
+            a = np.asarray(v)
+            kw[f.name] = a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
+    return Forest(**kw)
 
 
 def key_from_jax(key, device: torch.device | str = "cuda") -> torch.Tensor:

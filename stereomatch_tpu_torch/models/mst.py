@@ -1,17 +1,27 @@
-"""3DMST model entries and helpers (port of the parts of
-`stereomatch_tpu/models/mst.py` that the SGBM-seeded compositions run)."""
+"""3DMST model entries and helpers (port of `stereomatch_tpu/models/mst.py`
+but its coarse-to-fine entry): the flat random-init frame on the host or
+the device forest (`mst_stereo`), its device-forest twin
+(`mst_stereo_fused`) and the seeded frame the SGBM compositions run.
+
+Per view: median prefilter, L1 colour edge weights and the segment
+forest, MST_PMS label optimization, the disparity map; then the
+smoothness prior and the LR check of the left map.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from ..config import MSTConfig
 from .. import random as trandom
+from ..ops.filters import median3x3
 from ..ops.mst import (
     ForestArrays,
     aggregation_norm_inv,
+    forest_arrays,
     label_cost,
     labels_to_disparity,
     mst_pms_optimize,
@@ -20,7 +30,8 @@ from ..ops.mst import (
 )
 from ..ops.postprocess import lr_consistency
 
-__all__ = ["MSTOutput", "build_view_forest", "mst_stereo_seeded"]
+__all__ = ["MSTOutput", "build_view_forest", "mst_stereo", "mst_stereo_fused",
+           "mst_stereo_seeded"]
 
 
 class MSTOutput(NamedTuple):
@@ -69,23 +80,76 @@ def _seed_min_cost(vol, a0, b0, c0, fa, cfg: MSTConfig) -> torch.Tensor:
 
 
 def build_view_forest(bgr, cfg: MSTConfig, device: torch.device | str = "cuda") -> ForestArrays:
-    """The forest of one view on `device`: median prefilter, L1 colour edge
-    weights and the device forest, at the tree capacity of
-    _fused_capacities, its capacities checked. Only
-    cfg.forest_backend="device" is ported."""
+    """The forest of one view on `device`. cfg.forest_backend="host": the
+    median prefilter on `device`, one copy of the image to the host, then
+    the edge weights and the native builder there and one upload of the
+    forest. "device": _view_forest's device forest at the tree capacity of
+    _fused_capacities, its capacities checked."""
+    img = torch.as_tensor(bgr, dtype=torch.float32).to(device)
     if cfg.forest_backend == "host":
-        raise NotImplementedError(
-            "forest_backend='host' is not ported yet (ROADMAP.md queue 1: host forest path)"
-        )
+        from ..native import build_forest, color_edge_weights
+
+        if cfg.median_prefilter:
+            img = median3x3(img)
+        wr, wd = color_edge_weights(img.cpu().numpy())
+        forest = build_forest(wr, wd, cfg.c, cfg.min_cc_size, cfg.gamma, cfg.max_log_range)
+        return forest_arrays(forest, device)
     if cfg.forest_backend != "device":
         raise ValueError(f"forest_backend must be 'host' or 'device', got {cfg.forest_backend!r}")
     from ..ops.device_forest import device_forest_arrays
     from .sgbm_mst import _view_forest
 
-    img = torch.as_tensor(bgr, dtype=torch.float32).to(device)
     h, w = img.shape[0], img.shape[1]
     tmax, adj_cap = _fused_capacities(h, w, cfg)
     return device_forest_arrays(_view_forest(img, cfg, tmax, adj_cap), h, w, tmax, check=False)
+
+
+def mst_stereo(
+    left_bgr,
+    right_bgr,
+    left_vol,
+    right_vol,
+    cfg: MSTConfig = MSTConfig(),
+    seed: int = 0,
+    max_neighbors: int = 8,
+    device: torch.device | str = "cuda",
+) -> MSTOutput:
+    """The flat 3DMST frame on a rectified BGR pair and its (H, W, D) cost
+    volumes (lower is better): per view the forest of cfg.forest_backend,
+    cfg.iterations of random-init MST_PMS and the disparity map, then the
+    smoothness prior and the LR check of the left map. Disparities in
+    pixels, at most cfg.max_disp - 1. The views take the two halves of the
+    seed's key: the same RNG stream as the JAX function."""
+    kl, kr = trandom.split(trandom.PRNGKey(seed, device))
+
+    def view(k, bgr, vol):
+        fa = build_view_forest(bgr, cfg, device)
+        a, b, c, _ = mst_pms_optimize(k, torch.as_tensor(vol).to(device), fa, cfg,
+                                      max_neighbors=max_neighbors)
+        return labels_to_disparity(a, b, c, fa, cfg.max_disp) * (cfg.max_disp - 1.0)
+
+    disp_l = view(kl, left_bgr, left_vol)
+    disp_r = view(kr, right_bgr, right_vol)
+    return _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg)
+
+
+def mst_stereo_fused(
+    left_bgr,
+    right_bgr,
+    left_vol,
+    right_vol,
+    cfg: MSTConfig = MSTConfig(),
+    seed: int = 0,
+    max_neighbors: int = 8,
+    device: torch.device | str = "cuda",
+) -> MSTOutput:
+    """mst_stereo on the device forest, whatever cfg.forest_backend says:
+    the whole frame stays on `device`, with no host round trip between its
+    stages but the forest's capacity check. Same RNG stream as mst_stereo
+    with forest_backend="device", and as the JAX function."""
+    return mst_stereo(left_bgr, right_bgr, left_vol, right_vol,
+                      dataclasses.replace(cfg, forest_backend="device"), seed, max_neighbors,
+                      device)
 
 
 def mst_stereo_seeded(

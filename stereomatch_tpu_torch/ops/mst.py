@@ -17,8 +17,10 @@ jax.random, so one key draws the same candidates as the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import MSTConfig
@@ -27,11 +29,13 @@ from .mst_scan_cuda import ancestor_sums, segmented_cumsum
 
 __all__ = [
     "ForestArrays",
+    "forest_arrays",
     "tree_filter",
     "aggregation_norm_inv",
     "label_cost",
     "labels_to_disparity",
     "plane_labels_from_disparity",
+    "init_labels",
     "mst_pms_optimize",
     "refine_deltas",
     "make_candidate_fn",
@@ -39,10 +43,12 @@ __all__ = [
 
 
 class ForestArrays(NamedTuple):
-    """Flat segment forest. Node order is per-segment DFS preorder, and
-    every segment's nodes and Euler events are contiguous ranges. Index
-    arrays are int64; the JAX version's scan maps are replaced by the two
-    reset masks the scan takes directly."""
+    """Flat segment forest, from the host builder (`forest_arrays`) or
+    the device builder (`ops.device_forest.device_forest_arrays`). Node
+    order is per-segment DFS preorder, and every segment's nodes and Euler
+    events are contiguous ranges. Index arrays are int64; the JAX
+    version's scan maps are replaced by the two reset masks the scan takes
+    directly."""
 
     pixel_of_node: torch.Tensor  # (N,)
     parent_node: torch.Tensor  # (N,) self at tree roots
@@ -55,15 +61,75 @@ class ForestArrays(NamedTuple):
     euler_reset: torch.Tensor  # (2N,) bool: Euler scans restart here
     euler_src: torch.Tensor  # (2N,) node of each Euler event
     euler_is_in: torch.Tensor  # (2N,) bool: in-event
-    cut_child_idx: torch.Tensor  # (4, N) k-th cut child (self if none)
-    cut_child_w: torch.Tensor  # (4, N) f32 its w_exp (0 if none)
-    tree_start: torch.Tensor  # (T+1,) node offsets, T = tmax
+    cut_child_idx: torch.Tensor  # (S, N) k-th cut child (self if none); S = 3 host, 4 device
+    cut_child_w: torch.Tensor  # (S, N) f32 its w_exp (0 if none)
+    tree_start: torch.Tensor  # (T+1,) node offsets; T = trees (host) or tmax (device)
     adj_start: torch.Tensor  # (T+1,) CSR offsets of neighbouring trees
     adj_list: torch.Tensor  # (M,)
     sub_end: torch.Tensor  # (N,) p's in-segment subtree = [p, sub_end)
     num_trees: int
     height: int
     width: int
+
+
+def forest_arrays(forest, device: torch.device | str = "cuda") -> ForestArrays:
+    """A host `native.Forest` as ForestArrays on `device`: int64 indices,
+    bool masks, contiguous tensors. Unlike the device forest, the cut
+    children take 3 slots (a grid tree node has at most 3 children; the
+    device builder's tree roots need a 4th) and tree_start holds exactly
+    the forest's T + 1 offsets, with num_trees = T."""
+    n = forest.height * forest.width
+    ar = np.arange(n, dtype=np.int64)
+    seg_root = forest.seg_root_mask()
+    in_pos = forest.in_pos.astype(np.int64)
+    out_pos = forest.out_pos.astype(np.int64)
+    euler_reset = np.zeros(2 * n, bool)
+    euler_reset[in_pos[seg_root]] = True
+    # every Euler position is the in- or out-event of exactly one node
+    euler_src = np.zeros(2 * n, np.int64)
+    euler_src[in_pos] = ar
+    euler_src[out_pos] = ar
+    euler_is_in = np.zeros(2 * n, bool)
+    euler_is_in[in_pos] = True
+    # cut children in gather form: only non-tree-root segment roots carry
+    # across a cut, each into the node above it
+    parent = forest.parent_node.astype(np.int64)
+    sc_nodes = np.nonzero(seg_root & (parent != ar))[0]
+    sc_parent = parent[sc_nodes]
+    cut_child_idx = np.tile(ar, (3, 1))
+    cut_child_w = np.zeros((3, n), np.float32)
+    if sc_nodes.size:
+        order = np.argsort(sc_parent, kind="stable")
+        sp, sn = sc_parent[order], sc_nodes[order]
+        first = np.concatenate([[True], sp[1:] != sp[:-1]])
+        slot = np.arange(sp.size) - np.maximum.accumulate(np.where(first, np.arange(sp.size), 0))
+        if slot.max() >= 3:
+            raise ValueError("a grid tree node has more than 3 cut children")
+        cut_child_idx[slot, sp] = sn
+        cut_child_w[slot, sp] = forest.w_exp[sn]
+    # a one-tree forest has no neighbours: keep adj_list non-empty so the
+    # candidate gathers stay well-formed
+    adj_list = forest.adj_list if forest.adj_list.size else np.zeros(1, np.int32)
+    # p's in-segment subtree is the node range [p, sub_end): its Euler
+    # bracket [in(p), out(p)] holds exactly its 2k events
+    sub_end = ar + (out_pos - in_pos + 1) // 2
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype != np.bool_ and np.issubdtype(a.dtype, np.integer):
+            a = a.astype(np.int64)
+        return torch.from_numpy(a).to(device)
+
+    return ForestArrays(
+        pixel_of_node=t(forest.pixel_of_node), parent_node=t(parent),
+        w_exp=t(forest.w_exp), rel_gd=t(forest.rel_gd),
+        in_pos=t(in_pos), out_pos=t(out_pos), tree_id=t(forest.tree_id), seg_root=t(seg_root),
+        euler_reset=t(euler_reset), euler_src=t(euler_src), euler_is_in=t(euler_is_in),
+        cut_child_idx=t(cut_child_idx), cut_child_w=t(cut_child_w),
+        tree_start=t(forest.tree_start), adj_start=t(forest.adj_start), adj_list=t(adj_list),
+        sub_end=t(sub_end), num_trees=int(forest.num_trees), height=int(forest.height),
+        width=int(forest.width),
+    )
 
 
 def _subtree_sums(t: torch.Tensor, f: ForestArrays) -> torch.Tensor:
@@ -187,6 +253,28 @@ def labels_to_disparity(a, b, c, f: ForestArrays, max_disp: int) -> torch.Tensor
     return img.reshape(f.height, f.width)
 
 
+def _sample_plane(key: torch.Tensor, px: torch.Tensor, py: torch.Tensor, d_max: float):
+    """Random plane through (px, py): disparity uniform in [0, d_max), its
+    normal from a uniform point of the unit disc lifted to the hemisphere.
+    The three uniform draws are jax.random's bit for bit; cos, sin and sqrt
+    may differ from XLA's by an ulp, which the division by nz magnifies."""
+    k1, k2, k3 = trandom.split(key, 3)
+    d = trandom.uniform(k1, px.shape) * d_max
+    r = torch.sqrt(trandom.uniform(k2, px.shape))
+    th = trandom.uniform(k3, px.shape) * (2.0 * math.pi)
+    x1, x2 = r * torch.cos(th), r * torch.sin(th)
+    s = torch.sqrt(torch.clamp(1.0 - x1 * x1 - x2 * x2, min=0.0))
+    nx, ny = 2.0 * x1 * s, 2.0 * x2 * s
+    nz = torch.sqrt(torch.clamp(1.0 - nx * nx - ny * ny, min=1e-8))
+    return -nx / nz, -ny / nz, (nx * px + ny * py + nz * d) / nz
+
+
+def init_labels(key: torch.Tensor, f: ForestArrays, max_disp: int):
+    """Random per-node plane labels (a, b, c) in node order."""
+    px, py = _node_xy(f)
+    return _sample_plane(key, px, py, float(max_disp))
+
+
 def refine_deltas(max_disp: int, start: float | None = None, device="cuda"):
     """Annealed refinement ladder: (deltas_d, deltas_n) float32, the
     disparity delta halving from Dmax/2 (or `start`) while > 0.1 with the
@@ -283,15 +371,13 @@ def mst_pms_optimize(
     refine_start: float | None = None,
 ):
     """The MST_PMS loop for all trees at once, from `init_state` =
-    (a, b, c, min_cost) in node order. Per iteration every candidate is
-    evaluated through label_cost + tree_filter and each pixel keeps its
-    best (ties to the smallest candidate index). candidate_chunk bounds
-    peak memory by evaluating that many candidates at a time with a
-    running min; the result is identical. Returns (a, b, c, min_cost)."""
-    if init_state is None:
-        raise NotImplementedError(
-            "random-init labels are not ported yet (ROADMAP.md queue 1: flat mst_stereo)"
-        )
+    (a, b, c, min_cost) in node order, or from random planes
+    (init_labels) at an infinite min cost when it is None. Per iteration
+    every candidate is evaluated through label_cost + tree_filter and each
+    pixel keeps its best (ties to the smallest candidate index).
+    candidate_chunk bounds peak memory by evaluating that many candidates
+    at a time with a running min; the result is identical. Returns
+    (a, b, c, min_cost)."""
     iters = cfg.iterations if iterations is None else iterations
     max_disp = cfg.max_disp
     dev = cost_vol.device
@@ -302,8 +388,12 @@ def mst_pms_optimize(
     k_total = max_neighbors + int(deltas_d.shape[0])
     inv_norm = aggregation_norm_inv(f, cfg.carry_iters) if cfg.normalize_aggregation else None
 
-    key, _ = trandom.split(key)
-    a, b, c, mc = (torch.as_tensor(x, device=dev) for x in init_state)
+    key, k0 = trandom.split(key)
+    if init_state is None:
+        a, b, c = init_labels(k0, f, max_disp)
+        mc = torch.full(a.shape, float("inf"), dtype=torch.float32, device=dev)
+    else:
+        a, b, c, mc = (torch.as_tensor(x, device=dev) for x in init_state)
 
     def eval_block(pa_, pb_, pc_):
         cn = label_cost(

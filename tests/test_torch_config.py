@@ -101,7 +101,12 @@ def test_render_sequence_bytes_equal_jax(seed, n, h, w, d, drift):
     ("models.sgbm_mst", "mst_stereo_temporal_fused"),
     ("models.sgbm_mst", "sgbm_mst_video"),
     ("models.mst", "build_view_forest"),
+    ("models.mst", "mst_stereo"),
+    ("models.mst", "mst_stereo_fused"),
     ("models.mst", "mst_stereo_seeded"),
+    ("pipelines", "to_bgr255"),
+    ("pipelines", "mst_pipeline"),
+    ("pipelines", "sgbm_mst_pipeline"),
     ("serving", "compile_sgbm_mst_server"),
     ("serving", "compile_mst_video_server"),
     ("random", "PRNGKey"),
@@ -109,6 +114,7 @@ def test_render_sequence_bytes_equal_jax(seed, n, h, w, d, drift):
     ("interop", "forest_from_numpy"),
     ("interop", "key_from_jax"),
     ("ops.mst", "refine_deltas"),
+    ("ops.mst", "forest_arrays"),
 ])
 def test_entry_points_default_to_cuda(module, name):
     """A public entry point, and every public function that makes tensors,

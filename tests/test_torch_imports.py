@@ -13,7 +13,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "stereomatch_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_k1.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_k1.py",
+                                           ROOT / "bench_k2.py"]
 
 _BLOCK_JAX = """
 import importlib.abc, pkgutil, sys

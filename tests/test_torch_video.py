@@ -434,9 +434,10 @@ def test_video_unported_options_raise():
     for kw in (dict(staged=True), dict(cache_dir="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             compile_mst_video_server(H, W, cfg=TCFG, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_view_forest(np.zeros((H, W, 3), np.float32), port_cfg(MSTConfig(max_disp=D)),
-                          device="cpu")
+    # the host forest is ported; an unknown backend raises
+    with pytest.raises(ValueError, match="forest_backend"):
+        build_view_forest(np.zeros((H, W, 3), np.float32),
+                          port_cfg(MSTConfig(max_disp=D, forest_backend="gpu")), device="cpu")
 
 
 @pytest.mark.parametrize("module,name", [
