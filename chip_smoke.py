@@ -16,8 +16,8 @@ call to one device kernel in torch.profiler's events), then serves 3
 frames of a 960x1280 pair at 128 disparities through
 `stereomatch_tpu_torch.serving.compile_sgbm_mst_server`, with the guided
 and the raw cost volume, and gates the LR-checked left maps on the
-scene's exact ground truth. Then the video path at the same size, through
-`compile_mst_video_server`: the headline deployment (raw volume,
+scene's exact ground truth. Then the video path at the same size,
+through `compile_mst_video_server`: the headline deployment (raw volume,
 `reuse_forest`, `reseed_every=3`, scene cuts armed) on a 6-frame moving
 sequence, the guided rebuild-per-frame server on 3 frames, and one hard
 cut (the mirrored scene), whose replay must equal a fresh keyframe. Then
@@ -25,8 +25,14 @@ the paths of the host forest and random init at the same size:
 `pipelines.mst_pipeline` (the flat frame, 100 random-init iterations),
 `pipelines.sgbm_mst_pipeline` (the seeded frame on the host forest), and
 `models.mst.mst_stereo_fused` (30 random-init iterations on the device
-forest, the built-in guided volume), each gated on GT. Every path's K1 / K2 launches are
-counted and held to its frame mix. Also reports whether the server gives
+forest, the built-in guided volume), each gated on GT. Last, the four
+classical pipelines on the first frame (`pipelines.costvolume_pipeline`
+with the LR fill, `sgbm_pipeline` with speckle, `bm_pipeline`,
+`census_pipeline`): one warm call each, its launches counted (K1 once for
+SGBM, nothing for the others), three timed calls, peak device memory, and
+the GT digits gated as tests/test_gt_battery.py scores each engine;
+whether SGBM's maps of the same frame are bit-equal call to call. Every
+path's K1 / K2 launches are counted and held to its frame mix. Also reports whether the server gives
 the same maps twice for the same frame and seed. Fails (non-zero exit,
 no result line) on any fault, when the host forest builder falls back
 to its Python stand-in, and when no CUDA device is present. Imports nothing of jax or of the JAX package, and asserts that
@@ -75,6 +81,18 @@ FUSED_ITERS = 30
 FUSED_LAUNCHES = {"K1": 0, "K2": 180, "K2a": 180}
 # tests/test_device_forest.py::test_mst_stereo_device_backend_absolute_gt
 FUSED_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.10}
+# the classical engines on the first frame, each scored as
+# tests/test_gt_battery.py scores it and held to its gates; where the JAX
+# package itself misses one on this 960x1280x128 scene (its pipelines on
+# the CPU), the gate is the JAX package's own number plus 10%: BM EPE
+# 1.0333 -> 1.1366, census EPE 8.7517 -> 9.6269
+CLASSIC_GATES = {
+    "costvolume": {"epe": 0.5, "d1_all": 0.01},
+    "sgbm": {"epe": 0.35, "d1_all": 0.01},
+    "bm": {"epe": 1.1366, "d1_all": 0.03},
+    "census": {"epe": 9.6269, "bad2": 0.30},
+}
+CLASSIC_TIMED = 3  # timed calls after one warm call
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -392,6 +410,85 @@ def host_forest_paths(scene, dev) -> dict:
     return launches
 
 
+def classic_paths(scene, dev) -> dict:
+    """The four classical pipelines on `scene` (RGB in, numpy out): the
+    cost-volume pipeline (guided radius 9, 100 denoise iterations, LR
+    check and fill), SGBM (f32 cost, speckle 100 / 32), BM and census. Per
+    pipeline: one warm call, whose launches are counted (K1 once for SGBM,
+    no kernel for the others), then CLASSIC_TIMED calls on the host clock
+    around synchronize, the peak device memory over the calls, and the GT
+    digits of the warm call's map, gated. Reports whether SGBM's maps of
+    the same frame are bit-equal call to call. Returns each path's
+    launch counts."""
+    from stereomatch_tpu_torch import pipelines
+    from stereomatch_tpu_torch.config import (
+        BMConfig, CensusConfig, CostVolumeConfig, CostVolumePipelineConfig, SGBMConfig,
+    )
+    from stereomatch_tpu_torch.eval import disparity_metrics
+    from stereomatch_tpu_torch.synthetic import scene_eval_mask
+
+    t_section = time.perf_counter()
+    rgb_l, rgb_r = scene.left[..., ::-1], scene.right[..., ::-1]  # the scenes are BGR
+    d = MAX_DISP
+    cv_cfg = CostVolumePipelineConfig(volume=CostVolumeConfig(min_disp=0, max_disp=d - 1))
+    runs = {  # (one call, the map tests/test_gt_battery.py scores)
+        "costvolume": (lambda: pipelines.costvolume_pipeline(
+            rgb_l, rgb_r, cv_cfg, lr_check=True, device=dev)[0], lambda x: x),
+        "sgbm": (lambda: pipelines.sgbm_pipeline(
+            rgb_l, rgb_r, SGBMConfig(min_disp=0, num_disp=d, block_size=5), device=dev),
+            lambda x: x),
+        "bm": (lambda: pipelines.bm_pipeline(
+            rgb_l, rgb_r, BMConfig(num_disp=d, block_size=9), device=dev),
+            lambda x: np.where(x < 0, 0, x)),
+        "census": (lambda: pipelines.census_pipeline(
+            rgb_l, rgb_r, CensusConfig(d_max=d - 1), device=dev), lambda x: x),
+    }
+    mask = torch.from_numpy(scene_eval_mask(scene))
+    gt = torch.from_numpy(scene.disp_left)
+    launches = {}
+    for name, (run, score) in runs.items():
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        maps = []
+        t0 = time.perf_counter()
+        path = f"{name}_pipeline"
+        _, launches[path] = counted(lambda: maps.append(run()))
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        expect_exact(path, launches[path], {"K1": int(name == "sgbm"), "K2": 0, "K2a": 0},
+                     "one call")
+        secs = []
+        for _ in range(CLASSIC_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps.append(run())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        est = np.asarray(score(maps[0]), np.float32)
+        if est.shape != gt.shape or not np.isfinite(est).all():
+            raise AssertionError(f"{name}: bad output shape or non-finite values")
+        mm = disparity_metrics(torch.from_numpy(est), gt, mask)
+        digits = ", ".join(f"{k} {mm[k]:.4f}" for k in ("epe", "bad2", "d1_all"))
+        gates = CLASSIC_GATES[name]
+        if not all(mm[k] < limit for k, limit in gates.items()):
+            raise AssertionError(f"{name} misses its GT gates {gates}: {digits}")
+        same = all(np.array_equal(maps[0], m) for m in maps[1:])
+        repeat = f"maps of the {len(maps)} calls bit-equal: {same}"
+        if not same:
+            n_diff = max(int(np.count_nonzero(maps[0] != m)) for m in maps[1:])
+            big = max(float(np.abs(maps[0] - m).max()) for m in maps[1:])
+            repeat += f" (at most {n_diff} pixels differ from the first call's, max |diff| {big:.3g})"
+        log(f"{path} {'x'.join(map(str, est.shape))}x{d}: warm {warm:.3f} s, then "
+            f"{['%.4f' % s for s in secs]} s; peak device memory {peak / 1e9:.2f} GB "
+            f"({(peak - resident) / 1e9:.2f} GB above the {resident / 1e9:.2f} GB resident); "
+            f"GT {digits} (gates {gates}); {repeat}")
+        del maps
+    log(f"classical engines section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -593,6 +690,9 @@ def main() -> int:
     del vl, vr, seed_l, raw
     by_path = {"fused_server": launches, **video_path(cfg, dev)}
     by_path.update(host_forest_paths(sc0, dev))
+    # the classical engines last, so every path before them runs as it did
+    # without them
+    by_path.update(classic_paths(sc0, dev))
 
     # the port imports nothing of jax and nothing of the JAX package
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))

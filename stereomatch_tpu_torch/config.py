@@ -1,6 +1,8 @@
 """The frozen configs of the port: its own copy of what it uses from
-`stereomatch_tpu/config.py` (`SGBMConfig`, `CostVolumeConfig`,
-`GuidedFilterConfig`, `MSTConfig`, `production_mst_config`).
+`stereomatch_tpu/config.py` (`CensusConfig`, `BMConfig`, `SGBMConfig`,
+`CostVolumeConfig`, `ZNCCConfig`, `GuidedFilterConfig`, `DenoiseConfig`,
+`MSTConfig`, `production_mst_config`, `CostVolumePipelineConfig`,
+`replace`).
 
 Field names, defaults and signatures are the JAX package's, so a config
 built from the same fields drives either package the same way
@@ -11,15 +13,63 @@ nothing in the port say so.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 __all__ = [
+    "BMConfig",
+    "CensusConfig",
     "CostVolumeConfig",
+    "CostVolumePipelineConfig",
+    "DenoiseConfig",
     "GuidedFilterConfig",
     "MSTConfig",
     "SGBMConfig",
+    "ZNCCConfig",
     "production_mst_config",
+    "replace",
 ]
+
+
+@dataclass(frozen=True)
+class CensusConfig:
+    """Ternary census stereo (ref: src/StereoMatching.cpp:27-114).
+
+    The reference uses a 9x17 window (win_rw=4 horizontal half-width,
+    win_rh=8 vertical half-width), a 3-level census with dead-band
+    ``epsilon`` on [0,1]-normalized intensities, Hamming cost and WTA over
+    d in [0, d_max].
+    """
+
+    win_rw: int = 4
+    win_rh: int = 8
+    epsilon: float = 0.0045
+    d_max: int = 50
+
+
+@dataclass(frozen=True)
+class BMConfig:
+    """StereoBM parameter surface, mirroring cv::StereoBM as configured by
+    the reference's legacy CLI (src/stereo_opencv (copy).cpp:258-268):
+    preFilterCap 31, blockSize 9, minDisparity 0, textureThreshold 10,
+    uniquenessRatio 15, speckle 100/32, disp12MaxDiff 1.
+    """
+
+    min_disp: int = 0
+    num_disp: int = 128
+    block_size: int = 9
+    prefilter_cap: int = 31
+    texture_threshold: int = 10
+    uniqueness_ratio: int = 15
+    speckle_window_size: int = 100
+    speckle_range: int = 32
+    disp12_max_diff: int = 1
+    # rectification valid-pixel ROIs (x, y, w, h), the bm->setROI1/2 the
+    # reference's legacy CLI feeds from stereoRectify. When both are set,
+    # validity is restricted to cv::getValidDisparityROI(roi1, roi2, ...)
+    # (ops/bm.py::valid_disparity_roi). Tuples keep the dataclass hashable.
+    roi1: tuple[int, int, int, int] | None = None
+    roi2: tuple[int, int, int, int] | None = None
 
 
 @dataclass(frozen=True)
@@ -39,7 +89,7 @@ class SGBMConfig:
     p2: int | None = None  # default 32 * channels * block_size**2
     prefilter_cap: int = 63
     uniqueness_ratio: int = 10
-    # not read by the port (no speckle filter on the ported path)
+    # read by pipelines.sgbm_pipeline's speckle filter
     speckle_window_size: int = 100
     speckle_range: int = 32
     disp12_max_diff: int = 1
@@ -75,11 +125,26 @@ class CostVolumeConfig:
     bad_cost: float = 3.0
     color_weight: float = 0.11
     gradient_weight: float = 0.89
-    mean_subtract_radius: int = 17  # local-contrast box radius; not read by the port
+    # local-contrast box radius; not read by the port, as by neither
+    # package's cost-volume pipeline
+    mean_subtract_radius: int = 17
 
     @property
     def num_disp(self) -> int:
         return self.max_disp - self.min_disp + 1
+
+
+@dataclass(frozen=True)
+class ZNCCConfig:
+    """Windowed ZNCC/AD/AGD gray cost volume
+    (ref: buildCostVolumeSharedMemory, src/PatchMatchStereoGPU.cu:1298-1479).
+    """
+
+    min_disp: int = 0
+    max_disp: int = 127
+    win_radius: int = 4
+    metric: str = "zncc"  # "zncc" | "ad" | "agd"
+    bad_cost: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -90,6 +155,25 @@ class GuidedFilterConfig:
     radius: int = 9
     eps: float = (0.01 * 255.0) ** 2
     slab: int = 16  # disparity slices filtered per pass (memory knob)
+
+
+@dataclass(frozen=True)
+class DenoiseConfig:
+    """Weighted-Huber (Newcombe-style) primal-dual disparity denoise
+    (ref: variationalDisparityDenoise, src/PatchMatchStereoGPU.cu:7809-7940;
+    kernels :1042-1126). Constants from .cu:7860-7880: delta=gamma=0.00159,
+    sigma=1/(8*0.02), tau=0.02, per-pixel weight exp(-alpha*|grad I|^beta)
+    with alpha=10, beta=1; lambda=0.5 at the call site (.cu:9226-9227).
+    """
+
+    lam: float = 0.5
+    delta: float = 0.00159
+    gamma: float = 0.00159
+    sigma: float = 1.0 / (8.0 * 0.02)
+    tau: float = 0.02
+    alpha: float = 10.0
+    beta: float = 1.0
+    iterations: int = 100
 
 
 @dataclass(frozen=True)
@@ -147,3 +231,18 @@ def production_mst_config(max_disp: int, on_tpu: bool = True, **overrides) -> MS
     )
     kw.update(overrides)
     return MSTConfig(**kw)
+
+
+@dataclass(frozen=True)
+class CostVolumePipelineConfig:
+    """costVolumeStereoPlusVariationalDenoise pipeline config
+    (ref: src/PatchMatchStereoGPU.cu:8776-9410)."""
+
+    volume: CostVolumeConfig = CostVolumeConfig()
+    guided: GuidedFilterConfig = GuidedFilterConfig()
+    denoise: DenoiseConfig = DenoiseConfig()
+
+
+def replace(cfg, **kwargs):
+    """Convenience: dataclasses.replace re-export."""
+    return dataclasses.replace(cfg, **kwargs)

@@ -20,6 +20,7 @@ from ..ops.device_forest import build_forest_device, check_forest_capacity, devi
 from ..ops.filters import median3x3
 from ..ops.mst import labels_to_disparity, mst_pms_optimize, plane_labels_from_disparity
 from ..ops.postprocess import nearest_valid_fill
+from ..ops.segmentation import channel_l1
 from ..ops.sgbm import sgbm_disparity
 from .mst import MSTOutput, _fused_capacities, _lr_checked, _seed_min_cost, mst_stereo_seeded
 
@@ -65,16 +66,6 @@ def _default_sgbm_cfg(cfg: MSTConfig) -> SGBMConfig:
     return SGBMConfig(min_disp=0, num_disp=nd, block_size=5, cost_dtype=dt)
 
 
-def _channel_l1(d: torch.Tensor) -> torch.Tensor:
-    """sum(|d|, -1) as a left fold over channels (the XLA reduce order), so
-    integer-valued colour differences give bitwise the JAX edge weights."""
-    d = torch.abs(d)
-    s = d[..., 0]
-    for i in range(1, d.shape[-1]):
-        s = s + d[..., i]
-    return s
-
-
 def _view_forest(bgr: torch.Tensor, cfg: MSTConfig, tmax: int, adj_cap: int) -> dict:
     """Median prefilter + L1 colour edge weights + device forest of one view.
     Returns build_forest_device's raw dict, its capacities checked here,
@@ -82,8 +73,8 @@ def _view_forest(bgr: torch.Tensor, cfg: MSTConfig, tmax: int, adj_cap: int) -> 
     video server chains into later frames is then used without a sync."""
     img = median3x3(bgr) if cfg.median_prefilter else bgr
     im = img if img.ndim == 3 else img[..., None]
-    wr = _channel_l1(im[:, 1:] - im[:, :-1])
-    wd = _channel_l1(im[1:] - im[:-1])
+    wr = channel_l1(im[:, 1:] - im[:, :-1])
+    wd = channel_l1(im[1:] - im[:-1])
     raw = build_forest_device(
         wr, wd, c=cfg.c, min_size=cfg.min_cc_size, gamma=cfg.gamma,
         delta=cfg.max_log_range, tmax=tmax, adj_cap=adj_cap,

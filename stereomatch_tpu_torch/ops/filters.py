@@ -16,6 +16,7 @@ __all__ = [
     "box_filter",
     "guided_filter_gray",
     "guided_filter_volume",
+    "guided_filter_color",
     "median3x3",
 ]
 
@@ -127,6 +128,63 @@ def guided_filter_volume(
             b, radius, (0, 1), mode
         )
     return out
+
+
+def guided_filter_color(
+    guide_rgb: torch.Tensor,
+    src: torch.Tensor,
+    radius: int,
+    eps: float,
+    mode: str = "zero",
+) -> torch.Tensor:
+    """Guided filter with a 3-channel guide: per-pixel 3x3 covariance with
+    its explicit inverse (ref: colorGuidedFilterHelper0-5 and the d_inv_* /
+    d_cov_det globals, src/PatchMatchStereoGPU.cu:8173-8537, :112-139).
+    guide_rgb: (H, W, 3); src: (H, W) or (H, W, K)."""
+    squeeze = src.ndim == 2
+    p = src[..., None] if squeeze else src
+    g = guide_rgb
+    mean_g = box_filter(g, radius, (0, 1), mode)  # (H, W, 3)
+
+    def cov(i, j):
+        return (
+            box_filter(g[..., i] * g[..., j], radius, (0, 1), mode)
+            - mean_g[..., i] * mean_g[..., j]
+            + (eps if i == j else 0.0)
+        )
+
+    c00, c01, c02 = cov(0, 0), cov(0, 1), cov(0, 2)
+    c11, c12, c22 = cov(1, 1), cov(1, 2), cov(2, 2)
+
+    # explicit inverse via the adjugate
+    i00 = c11 * c22 - c12 * c12
+    i01 = c02 * c12 - c01 * c22
+    i02 = c01 * c12 - c02 * c11
+    i11 = c00 * c22 - c02 * c02
+    i12 = c01 * c02 - c00 * c12
+    i22 = c00 * c11 - c01 * c01
+    inv_det = (1.0 / (c00 * i00 + c01 * i01 + c02 * i02))[..., None]
+
+    mean_p = box_filter(p, radius, (0, 1), mode)  # (H, W, K)
+    cov_gp = [
+        box_filter(g[..., i : i + 1] * p, radius, (0, 1), mode)
+        - mean_g[..., i : i + 1] * mean_p
+        for i in range(3)
+    ]
+
+    def row(a, b, c):
+        return (a[..., None] * cov_gp[0] + b[..., None] * cov_gp[1]
+                + c[..., None] * cov_gp[2]) * inv_det
+
+    a0, a1, a2 = row(i00, i01, i02), row(i01, i11, i12), row(i02, i12, i22)
+    b = mean_p - a0 * mean_g[..., 0:1] - a1 * mean_g[..., 1:2] - a2 * mean_g[..., 2:3]
+    out = (
+        box_filter(a0, radius, (0, 1), mode) * g[..., 0:1]
+        + box_filter(a1, radius, (0, 1), mode) * g[..., 1:2]
+        + box_filter(a2, radius, (0, 1), mode) * g[..., 2:3]
+        + box_filter(b, radius, (0, 1), mode)
+    )
+    return out[..., 0] if squeeze else out
 
 
 # optimal 9-element median network (19 compare-exchanges), as in the JAX op

@@ -1,11 +1,55 @@
-"""Post-processing: nearest-valid fill and the left-right consistency
-check (port of `stereomatch_tpu/ops/postprocess.py`)."""
+"""Post-processing: nearest-valid fill, the left-right consistency checks
+and the occlusion fill of both views (port of
+`stereomatch_tpu/ops/postprocess.py`; its `weighted_median` is not ported
+yet, ROADMAP.md). Disparities round half to even in both packages
+(`torch.round`, `jnp.round`)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["nearest_valid_fill", "lr_consistency"]
+__all__ = ["lr_occlusion_mask", "nearest_valid_fill", "lr_check_fill_pair", "lr_consistency"]
+
+
+def lr_check_fill_pair(disp_l, disp_r, max_disp: float, min_disp: float):
+    """LR-check both views against each other and fill the occluded pixels
+    (the cost-volume pipeline's lr_check step). Returns (left, right)
+    filled maps."""
+    occ_l = lr_occlusion_mask(disp_l, disp_r, -1, max_disp, min_disp)
+    occ_r = lr_occlusion_mask(disp_r, disp_l, +1, max_disp, min_disp)
+    zero = disp_l.new_zeros(())
+    left = nearest_valid_fill(torch.where(occ_l, zero, disp_l), ~occ_l)
+    right = nearest_valid_fill(torch.where(occ_r, zero, disp_r), ~occ_r)
+    return left, right
+
+
+def lr_occlusion_mask(
+    disp_ref: torch.Tensor,
+    disp_other: torch.Tensor,
+    sign: int,
+    max_disp: float,
+    min_disp: float = 0.0,
+    max_diff: float = 1.0,
+) -> torch.Tensor:
+    """Occlusion mask for one view (True = inconsistent or occluded), as
+    the GPU leftRightCheck (src/PatchMatchStereoGPU.cu:2115-2153). sign -1
+    for a left-view map (match at x - d), +1 for a right-view map (match at
+    x + d): invalid when d <= 0, d > max_disp, d < min_disp, the match
+    column is out of bounds, or |d - other(x + sign*round(d))| > max_diff."""
+    w = disp_ref.shape[1]
+    xs = torch.arange(w, device=disp_ref.device)[None, :]
+    match_x = xs + sign * torch.round(disp_ref).long()
+    in_bounds = (match_x >= 0) & (match_x < w)
+    other = torch.gather(disp_other, 1, match_x.clamp(0, w - 1))
+    consistent = torch.abs(disp_ref - other) <= max_diff
+    valid = (
+        (disp_ref > 0.0)
+        & (disp_ref <= max_disp)
+        & (disp_ref >= min_disp)
+        & in_bounds
+        & consistent
+    )
+    return ~valid
 
 
 def nearest_valid_fill(disp: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

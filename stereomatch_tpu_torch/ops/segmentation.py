@@ -19,7 +19,7 @@ import math
 
 import torch
 
-__all__ = ["boruvka_segment"]
+__all__ = ["boruvka_segment", "segment_image"]
 
 _BIG_RANK = 2**30
 
@@ -134,3 +134,23 @@ def boruvka_segment(
             if not hooked_any:
                 break
     return parent.reshape(h, w)
+
+
+def channel_l1(d: torch.Tensor) -> torch.Tensor:
+    """sum(|d|, -1) as a left fold over channels (the XLA reduce order), so
+    integer-valued colour differences give bitwise the JAX edge weights."""
+    d = torch.abs(d)
+    s = d[..., 0]
+    for i in range(1, d.shape[-1]):
+        s = s + d[..., i]
+    return s
+
+
+def segment_image(bgr, c: float = 5000.0, min_size: int = 200,
+                  device: torch.device | str = "cuda", **kw) -> torch.Tensor:
+    """L1 colour edge weights (ref diff(), Stereo3DMST.cpp:83-94) of an
+    (H, W, 3) image on `device`, then boruvka_segment."""
+    img = torch.as_tensor(bgr, dtype=torch.float32, device=device)
+    wr = channel_l1(img[:, 1:] - img[:, :-1])
+    wd = channel_l1(img[1:] - img[:-1])
+    return boruvka_segment(wr, wd, c, min_size, **kw)

@@ -1,7 +1,7 @@
-"""End-to-end pipeline entry points of the 3DMST engines (port of part of
-`stereomatch_tpu/pipelines.py`): host images in, RGB or gray, uint8 or
-float; numpy disparity maps out. The census, BM, SGBM, cost-volume and
-PatchMatch pipelines are not ported yet (ROADMAP.md).
+"""End-to-end pipeline entry points (port of `stereomatch_tpu/pipelines.py`):
+host images in, RGB or gray, uint8 or float; numpy disparity maps out.
+The census, BM, SGBM and cost-volume pipelines and the 3DMST pipelines
+are ported; the PatchMatch pipeline is not yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -9,9 +9,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import MSTConfig
+from .config import BMConfig, CensusConfig, CostVolumePipelineConfig, MSTConfig, SGBMConfig
 
-__all__ = ["check_stereo_pair", "to_bgr255", "mst_pipeline", "sgbm_mst_pipeline"]
+__all__ = [
+    "check_stereo_pair",
+    "costvolume_pipeline",
+    "census_pipeline",
+    "bm_pipeline",
+    "sgbm_pipeline",
+    "mst_pipeline",
+    "sgbm_mst_pipeline",
+    "to_bgr255",
+]
 
 
 def check_stereo_pair(left, right) -> None:
@@ -30,6 +39,93 @@ def to_bgr255(img, device: torch.device | str = "cuda") -> torch.Tensor:
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     return torch.from_numpy(np.ascontiguousarray(arr[..., ::-1], np.float32)).to(device)
+
+
+def _gray255(img, device: torch.device | str = "cuda") -> torch.Tensor:
+    """Gray or RGB host image -> (H, W) float32 gray in [0, 255] on
+    `device` (RGB: BT.601 luma, computed on the host as the JAX package
+    does)."""
+    arr = np.asarray(img).astype(np.float32)
+    if arr.ndim == 3:
+        arr = 0.299 * arr[..., 0] + 0.587 * arr[..., 1] + 0.114 * arr[..., 2]
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def _filter_speckles(disp: torch.Tensor, cfg) -> torch.Tensor:
+    """OpenCV's StereoSGBM::compute and StereoBM::compute pass
+    DISP_SCALE*speckleRange on their 1/16 fixed-point map: speckleRange
+    whole disparities on a float map."""
+    from .ops.speckle import filter_speckles
+
+    return filter_speckles(disp, invalid=float(cfg.min_disp - 1),
+                           max_size=cfg.speckle_window_size, max_diff=float(cfg.speckle_range))
+
+
+def costvolume_pipeline(left, right, cfg: CostVolumePipelineConfig = CostVolumePipelineConfig(),
+                        denoise: bool = True, lr_check: bool = False,
+                        device: torch.device | str = "cuda"):
+    """AD+gradient volume -> guided filter -> WTA -> Huber denoise (ref
+    executable: costVolumeStereoPlusVariationalDenoise,
+    src/PatchMatchStereoGPU.cu:8776-9410). Returns (left_disp, right_disp)
+    as numpy float32."""
+    from .models.costvolume import cost_volume_stereo
+
+    check_stereo_pair(left, right)
+    out = cost_volume_stereo(to_bgr255(left, device), to_bgr255(right, device), cfg, denoise,
+                             lr_check)
+    return out.left_disp.cpu().numpy(), out.right_disp.cpu().numpy()
+
+
+def census_pipeline(left, right, cfg: CensusConfig = CensusConfig(),
+                    device: torch.device | str = "cuda"):
+    """Ternary census + WTA right-view disparity (ref:
+    StereoMatching::censusStereo, src/StereoMatching.cpp:27-114). Inputs
+    gray or RGB in [0, 255], normalized to [0, 1] here. Returns int32."""
+    from .ops.cost import census_stereo
+
+    check_stereo_pair(left, right)
+    l = _gray255(left, device) * (1.0 / 255.0)
+    r = _gray255(right, device) * (1.0 / 255.0)
+    return census_stereo(l, r, cfg).cpu().numpy()
+
+
+def bm_pipeline(left, right, cfg: BMConfig | None = None, speckle: bool = True,
+                device: torch.device | str = "cuda"):
+    """StereoBM left-view disparity with the OpenCV parameter surface (ref:
+    the legacy CLI's bm algorithm, src/stereo_opencv (copy).cpp:258-268).
+    Returns float32 disparity; invalid pixels = cfg.min_disp - 1."""
+    from .ops.bm import bm_disparity
+
+    cfg = cfg or BMConfig()
+    check_stereo_pair(left, right)
+    disp = bm_disparity(_gray255(left, device), _gray255(right, device), cfg).disparity
+    if speckle and cfg.speckle_window_size > 0:
+        disp = _filter_speckles(disp, cfg)
+    return disp.cpu().numpy()
+
+
+def sgbm_pipeline(left, right, cfg: SGBMConfig = SGBMConfig(), speckle: bool = True,
+                  device: torch.device | str = "cuda"):
+    """8-path SGBM left-view disparity with the OpenCV parameter surface
+    (ref: StereoMatching::SGBMStereo, src/StereoMatching.cpp:148-193); the
+    aggregation is kernel K1. Returns float32 disparity; invalid pixels =
+    cfg.min_disp - 1.
+
+    Above the JAX package's band threshold (an aggregated volume over
+    2 GiB in float32) its result comes from `sgbm_disparity_banded`, which
+    is not ported yet (ROADMAP.md queue 1, item 5): that raises."""
+    from .ops.sgbm import sgbm_disparity
+
+    check_stereo_pair(left, right)
+    h, w = np.asarray(left).shape[:2]
+    if h * w * cfg.num_disp * 4 > 2 << 30:
+        raise NotImplementedError(
+            f"sgbm_pipeline at {h}x{w}x{cfg.num_disp}: the JAX package streams this size "
+            "through sgbm_disparity_banded, which is not ported yet (ROADMAP.md queue 1, item 5)")
+    disp = sgbm_disparity(_gray255(left, device), _gray255(right, device), cfg).disparity
+    if speckle and cfg.speckle_window_size > 0:
+        disp = _filter_speckles(disp, cfg)
+    return disp.cpu().numpy()
 
 
 def _volumes(left, right, left_vol, right_vol, max_disp: int, device):

@@ -17,22 +17,36 @@ from stereomatch_tpu import synthetic as jsynthetic
 from stereomatch_tpu_torch import config as tconfig
 from stereomatch_tpu_torch import synthetic as tsynthetic
 
-CONFIG_CLASSES = ["SGBMConfig", "CostVolumeConfig", "GuidedFilterConfig", "MSTConfig"]
+CONFIG_CLASSES = [
+    "CensusConfig", "BMConfig", "SGBMConfig", "CostVolumeConfig", "ZNCCConfig",
+    "GuidedFilterConfig", "DenoiseConfig", "MSTConfig", "CostVolumePipelineConfig",
+]
 
 
 def port_cfg(cfg):
     """The port's config of the same class name, built from `cfg`'s fields
-    (a JAX package config)."""
+    (a JAX package config); a field that holds a config (as
+    CostVolumePipelineConfig's do) is converted the same way."""
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields = {k: port_cfg(v) if dataclasses.is_dataclass(v) else v for k, v in fields.items()}
     return getattr(tconfig, type(cfg).__name__)(**fields)
 
 
+def _as_fields(v):
+    """A config compared by its fields (recursively), anything else as is:
+    the two packages' configs are of different classes."""
+    if dataclasses.is_dataclass(v):
+        return (type(v).__name__, tuple((f.name, _as_fields(getattr(v, f.name)))
+                                        for f in dataclasses.fields(v)))
+    return v
+
+
 def _fields(cls):
-    return [(f.name, f.default, str(f.type)) for f in dataclasses.fields(cls)]
+    return [(f.name, _as_fields(f.default), str(f.type)) for f in dataclasses.fields(cls)]
 
 
 def _values(cfg):
-    return [(f.name, getattr(cfg, f.name)) for f in dataclasses.fields(cfg)]
+    return [(f.name, _as_fields(getattr(cfg, f.name))) for f in dataclasses.fields(cfg)]
 
 
 @pytest.mark.parametrize("name", CONFIG_CLASSES)
@@ -49,6 +63,13 @@ def test_config_copy_equals_jax(name):
             assert t(**kw).resolved_p1p2() == j(**kw).resolved_p1p2()
     if name == "CostVolumeConfig":
         assert t(min_disp=3, max_disp=40).num_disp == j(min_disp=3, max_disp=40).num_disp
+    if name == "CostVolumePipelineConfig":
+        jc = jconfig.replace(j(), volume=jconfig.CostVolumeConfig(max_disp=63),
+                             denoise=jconfig.DenoiseConfig(iterations=7))
+        tc = port_cfg(jc)
+        assert type(tc.volume) is tconfig.CostVolumeConfig and tc.volume.num_disp == 64
+        assert _values(tc) == _values(jc)
+        assert tconfig.replace(tc, guided=tconfig.GuidedFilterConfig(radius=4)).guided.radius == 4
 
 
 @pytest.mark.parametrize("max_disp", [16, 24, 128, 256])
@@ -107,6 +128,11 @@ def test_render_sequence_bytes_equal_jax(seed, n, h, w, d, drift):
     ("pipelines", "to_bgr255"),
     ("pipelines", "mst_pipeline"),
     ("pipelines", "sgbm_mst_pipeline"),
+    ("pipelines", "census_pipeline"),
+    ("pipelines", "bm_pipeline"),
+    ("pipelines", "sgbm_pipeline"),
+    ("pipelines", "costvolume_pipeline"),
+    ("ops.segmentation", "segment_image"),
     ("serving", "compile_sgbm_mst_server"),
     ("serving", "compile_mst_video_server"),
     ("random", "PRNGKey"),
