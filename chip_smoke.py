@@ -31,7 +31,15 @@ with the LR fill, `sgbm_pipeline` with speckle, `bm_pipeline`,
 `census_pipeline`): one warm call each, its launches counted (K1 once for
 SGBM, nothing for the others), three timed calls, peak device memory, and
 the GT digits gated as tests/test_gt_battery.py scores each engine;
-whether SGBM's maps of the same frame are bit-equal call to call. Every
+whether SGBM's maps of the same frame are bit-equal call to call. Then,
+last, the two PatchMatch engines in the CLI's configurations on the same
+frame (`pipelines.patchmatch_pipeline`, 10 rounds of the adgrad metric
+with the plane fill and weighted median; `models.coupled.
+coupled_patchmatch_stereo` on the built-in guided left volume): one warm
+call each, counted (no kernel), one timed call, peak device memory,
+whether the two calls' maps are bit-equal, the GT digits gated, and the
+window cost each runs (`plane_cost`, `hybrid_plane_cost`) timed at full
+size with its device kernels a call and its calls an engine call. Every
 path's K1 / K2 launches are counted and held to its frame mix. Also reports whether the server gives
 the same maps twice for the same frame and seed. Fails (non-zero exit,
 no result line) on any fault, when the host forest builder falls back
@@ -93,6 +101,12 @@ CLASSIC_GATES = {
     "census": {"epe": 9.6269, "bad2": 0.30},
 }
 CLASSIC_TIMED = 3  # timed calls after one warm call
+# the CLI's PatchMatch engines (apps/cli.py's `pm` and `coupled`): the JAX
+# package meets tests/test_gt_battery.py's PatchMatch gates on this scene
+# (jax_classic_gt.py pm coupled, on the CPU: EPE 0.0376 / bad2 0.00024 and
+# EPE 0.1541 / bad2 0.00111), so both are gated there
+PM_CFG = dict(max_disp=float(MAX_DISP - 1), iterations=10, metric="adgrad")
+PM_GATES = {"epe": 0.2, "bad2": 0.02}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -120,11 +134,11 @@ def cuda_time_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def device_kernels(fn) -> int:
-    """The device kernels one call of fn launches, from torch.profiler's
-    CUDA events. A trace with no device event at all lost its events (it
-    happened once in a run of a dozen traces on the H100): it is taken
-    again, up to three times."""
+def device_trace(fn) -> tuple[int, float]:
+    """(device kernels, their summed device ms) of one call of fn, from
+    torch.profiler's CUDA events. A trace with no device event at all lost
+    its events (it happened once in a run of a dozen traces on the H100):
+    it is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -132,10 +146,10 @@ def device_kernels(fn) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        count = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
-        if count:
-            return count
-    return count
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
 
 
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
@@ -214,7 +228,7 @@ def k2_cases(fr, rows, tag, dev, g):
             torch.testing.assert_close(got, composition(x), rtol=1e-5, atol=1e-4)
         del got, want
         deep, tiles = deep_share(lambda: kernel(*args))
-        nk = device_kernels(lambda: kernel(*args))
+        nk, _ = device_trace(lambda: kernel(*args))
         if nk != 1:
             raise AssertionError(f"K2 {name} ({tag}): {nk} device kernels a call, not one")
         ms = cuda_time_ms(lambda: kernel(*args), 20)
@@ -489,6 +503,111 @@ def classic_paths(scene, dev) -> dict:
     return launches
 
 
+def patchmatch_paths(scene, dev) -> dict:
+    """The two PatchMatch engines on `scene` as the CLI runs them: the
+    PatchMatch pipeline (RGB in, numpy out, seed 0; its left map scored) and
+    the coupled engine from the built-in guided volumes (key 0; its
+    smoothed field scored). Per engine: one warm call, whose launches are
+    counted (no kernel), one call timed on the host clock around
+    synchronize, the peak device memory over both above the resident, the
+    GT digits of the warm call's map, gated, and whether the two calls'
+    maps are bit-equal. Then the window cost each engine runs, timed at full
+    size by CUDA events on the left view's random initial planes, with its
+    device kernels a call and their summed device time (profiler) and its
+    calls an engine call. Returns each path's launch counts."""
+    from stereomatch_tpu_torch import pipelines
+    from stereomatch_tpu_torch import random as trandom
+    from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
+    from stereomatch_tpu_torch.config import CoupledConfig, PatchMatchConfig
+    from stereomatch_tpu_torch.eval import disparity_metrics
+    from stereomatch_tpu_torch.models.coupled import coupled_patchmatch_stereo
+    from stereomatch_tpu_torch.ops.coupled import hybrid_plane_cost
+    from stereomatch_tpu_torch.ops.patchmatch import _rand_init, _refine_ladder, _Views
+    from stereomatch_tpu_torch.synthetic import scene_eval_mask
+
+    t_section = time.perf_counter()
+    rgb_l, rgb_r = scene.left[..., ::-1], scene.right[..., ::-1]  # the scenes are BGR
+    pm_cfg = PatchMatchConfig(**PM_CFG)
+    c_cfg = CoupledConfig(max_disp=MAX_DISP - 1)
+
+    def coupled():
+        """apps/cli.py's coupled engine: the volumes, then the engine."""
+        rl, rr = (torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+                  for x in (rgb_l, rgb_r))
+        lvol, _ = builtin_cost_volumes(rl, rr, MAX_DISP)
+        out = coupled_patchmatch_stereo(trandom.PRNGKey(0, dev), pipelines.to_bgr255(rgb_l, dev),
+                                        lvol, c_cfg)
+        return out.smoothed.cpu().numpy()
+
+    runs = {
+        "patchmatch_pipeline": lambda: pipelines.patchmatch_pipeline(rgb_l, rgb_r, pm_cfg,
+                                                                     device=dev)[0],
+        "coupled_patchmatch": coupled,
+    }
+    mask = torch.from_numpy(scene_eval_mask(scene))
+    gt = torch.from_numpy(scene.disp_left)
+    launches = {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        maps = []
+        t0 = time.perf_counter()
+        _, launches[name] = counted(lambda: maps.append(run()))
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        expect_exact(name, launches[name], {"K1": 0, "K2": 0, "K2a": 0}, "one call")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps.append(run())
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        est = np.asarray(maps[0], np.float32)
+        if est.shape != gt.shape or not np.isfinite(est).all():
+            raise AssertionError(f"{name}: bad output shape or non-finite values")
+        mm = disparity_metrics(torch.from_numpy(est), gt, mask)
+        digits = ", ".join(f"{k} {mm[k]:.4f}" for k in ("epe", "bad2", "d1_all"))
+        if not all(mm[k] < limit for k, limit in PM_GATES.items()):
+            raise AssertionError(f"{name} misses its GT gates {PM_GATES}: {digits}")
+        same = np.array_equal(maps[0], maps[1])
+        repeat = f"the two calls' maps bit-equal: {same}"
+        if not same:
+            repeat += (f" ({int(np.count_nonzero(maps[0] != maps[1]))} pixels differ, max |diff| "
+                       f"{float(np.abs(maps[0] - maps[1]).max()):.3g})")
+        log(f"{name} {'x'.join(map(str, est.shape))}x{MAX_DISP}: warm {warm:.3f} s, then "
+            f"{sec:.3f} s; peak device memory {peak / 1e9:.2f} GB "
+            f"({(peak - resident) / 1e9:.2f} GB above the {resident / 1e9:.2f} GB resident); "
+            f"GT {digits} (gates {PM_GATES}); {repeat}")
+        del maps
+
+    # the window costs at full size, on the left view's random initial planes
+    h, w = SHAPE
+    left = torch.from_numpy(scene.left.astype(np.float32)).to(dev)
+    right = torch.from_numpy(scene.right.astype(np.float32)).to(dev)
+    views = _Views(left, right, pm_cfg)
+    planes = _rand_init(trandom.PRNGKey(0, dev), h, w, pm_cfg)
+    lvol, _ = builtin_cost_volumes(left.flip(-1), right.flip(-1), MAX_DISP)
+    # a PatchMatch round costs 8 spatial, 1 view and the refinement candidates
+    # a view; a coupled round the current label, 8 neighbours and the refinements
+    pm_calls = 2 + 2 * pm_cfg.iterations * (9 + len(_refine_ladder(pm_cfg.max_disp)))
+    c_calls = c_cfg.outer_iterations * (9 + len(_refine_ladder(c_cfg.max_disp)))
+    costs = {
+        "plane_cost": (lambda: views.cost(planes, 0), pm_calls),
+        "hybrid_plane_cost": (lambda: hybrid_plane_cost(left, lvol, planes, c_cfg, -1), c_calls),
+    }
+    taps = len(range(0, pm_cfg.window_size, pm_cfg.tap_stride)) ** 2
+    for name, (fn, calls) in costs.items():
+        ms = cuda_time_ms(fn, 5)
+        nk, busy = device_trace(fn)
+        log(f"{name} {h}x{w} ({taps} taps): {ms:.3f} ms a call (CUDA events), {nk} device "
+            f"kernels a call busy {busy:.3f} ms (profiler), {calls} calls an engine call "
+            f"({ms * calls / 1e3:.2f} s of them)")
+    del views, planes, lvol, left, right
+    log(f"PatchMatch engines section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -693,6 +812,8 @@ def main() -> int:
     # the classical engines last, so every path before them runs as it did
     # without them
     by_path.update(classic_paths(sc0, dev))
+    # the PatchMatch engines after them, for the same reason
+    by_path.update(patchmatch_paths(sc0, dev))
 
     # the port imports nothing of jax and nothing of the JAX package
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))

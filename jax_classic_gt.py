@@ -1,15 +1,21 @@
-"""The JAX package's classical pipelines on one synthetic scene, on the CPU,
-scored as tests/test_gt_battery.py scores each engine: the reference digits
-that `chip_smoke.py`'s CLASSIC_GATES are set from where the battery's own
-gates (set at 480x640x64) are missed at a larger size.
+"""The JAX package's classical and PatchMatch engines on one synthetic
+scene, on the CPU, scored as tests/test_gt_battery.py scores each engine:
+the reference digits that `chip_smoke.py`'s CLASSIC_GATES and PM_GATES are
+set from where the battery's own gates (set at 480x640x64 and 240x320x32)
+are missed at a larger size.
 
     JAX_PLATFORMS=cpu python3 jax_classic_gt.py sgbm bm census costvolume \
-        [--shape 960 1280 128]
+        pm coupled [--shape 960 1280 128]
 
 One JSON line per engine: its metrics, seconds and the process's peak RSS.
-At 960x1280x128 the costvolume engine holds about 10 GB and census is run
-in 64-row bands with an 8-row halo, which is exact: the census window
-reaches 8 rows and the shifted stacks move along x only.
+At 960x1280x128 the costvolume and coupled engines hold about 10 GB and
+census is run in 64-row bands with an 8-row halo, which is exact: the
+census window reaches 8 rows and the shifted stacks move along x only.
+`pm` and `coupled` run the CLI's configurations (`apps/cli.py`'s `pm` and
+`coupled` engines): the PatchMatch pipeline at max_disp D - 1, 10
+iterations, the adgrad metric, scored on its post-processed left map; the
+coupled PatchMatch-Huber engine on the built-in guided left volume, key 0,
+scored on its smoothed field.
 This script is the JAX side; the port (`stereomatch_tpu_torch`) never
 imports it.
 """
@@ -25,12 +31,13 @@ import numpy as np
 
 from stereomatch_tpu import pipelines
 from stereomatch_tpu.config import (
-    BMConfig, CensusConfig, CostVolumeConfig, CostVolumePipelineConfig, SGBMConfig,
+    BMConfig, CensusConfig, CostVolumeConfig, CostVolumePipelineConfig, CoupledConfig,
+    PatchMatchConfig, SGBMConfig,
 )
 from stereomatch_tpu.eval import disparity_metrics
 from stereomatch_tpu.synthetic import render_scene, scene_eval_mask
 
-ENGINES = ("sgbm", "bm", "census", "costvolume")
+ENGINES = ("sgbm", "bm", "census", "costvolume", "pm", "coupled")
 SCENE_SEED = 0  # chip_smoke.py's scene
 
 
@@ -60,6 +67,21 @@ def run(engine: str, rgb_l, rgb_r, d: int):
         return np.where(disp < 0, 0, disp)
     if engine == "census":
         return census_banded(rgb_l, rgb_r, d)
+    if engine == "pm":
+        cfg = PatchMatchConfig(max_disp=float(d - 1), iterations=10, metric="adgrad")
+        return pipelines.patchmatch_pipeline(rgb_l, rgb_r, cfg)[0]
+    if engine == "coupled":
+        import jax
+        import jax.numpy as jnp
+
+        from stereomatch_tpu.apps.stereo_yin import builtin_cost_volumes
+        from stereomatch_tpu.models.coupled import coupled_patchmatch_stereo
+
+        lvol, _ = builtin_cost_volumes(jnp.asarray(np.asarray(rgb_l, np.float32)),
+                                       jnp.asarray(np.asarray(rgb_r, np.float32)), d)
+        out = coupled_patchmatch_stereo(jax.random.PRNGKey(0), pipelines.to_bgr255(rgb_l),
+                                        lvol, CoupledConfig(max_disp=d - 1))
+        return np.asarray(out.smoothed)
     cfg = CostVolumePipelineConfig(volume=CostVolumeConfig(min_disp=0, max_disp=d - 1))
     return pipelines.costvolume_pipeline(rgb_l, rgb_r, cfg, lr_check=True)[0]
 

@@ -1,8 +1,8 @@
 """The frozen configs of the port: its own copy of what it uses from
 `stereomatch_tpu/config.py` (`CensusConfig`, `BMConfig`, `SGBMConfig`,
 `CostVolumeConfig`, `ZNCCConfig`, `GuidedFilterConfig`, `DenoiseConfig`,
-`MSTConfig`, `production_mst_config`, `CostVolumePipelineConfig`,
-`replace`).
+`MSTConfig`, `production_mst_config`, `PatchMatchConfig`, `CoupledConfig`,
+`WeightedMedianConfig`, `CostVolumePipelineConfig`, `replace`).
 
 Field names, defaults and signatures are the JAX package's, so a config
 built from the same fields drives either package the same way
@@ -21,10 +21,13 @@ __all__ = [
     "CensusConfig",
     "CostVolumeConfig",
     "CostVolumePipelineConfig",
+    "CoupledConfig",
     "DenoiseConfig",
     "GuidedFilterConfig",
     "MSTConfig",
+    "PatchMatchConfig",
     "SGBMConfig",
+    "WeightedMedianConfig",
     "ZNCCConfig",
     "production_mst_config",
     "replace",
@@ -231,6 +234,96 @@ def production_mst_config(max_disp: int, on_tpu: bool = True, **overrides) -> MS
     )
     kw.update(overrides)
     return MSTConfig(**kw)
+
+
+@dataclass(frozen=True)
+class PatchMatchConfig:
+    """Slanted-plane PatchMatch stereo.
+
+    CPU reference (src/pm.cpp:4-6, pm.h:159-162): WINDOW_SIZE=35,
+    MAX_DISPARITY=60, PLANE_PENALTY=120, adaptive weight
+    w(p,q)=exp(-||dc||_1/gamma) with gamma=10 (caller), dissimilarity
+    (1-alpha)*min(||dc||_1, tau_c) + alpha*min(||dgrad||_1, tau_g).
+    GPU reference (src/PatchMatchStereoGPU.cu:861-998, :1740-2010).
+
+    The window cost is evaluated on a subsampled tap grid (``tap_stride``)
+    instead of materializing the rows*cols*35*35 weight tensor of
+    pm.cpp:447-487, the trick the reference's own huber variant uses
+    (window subsampled stride 5, .cu:3126-3128).
+    """
+
+    alpha: float = 0.9
+    gamma: float = 10.0
+    tau_c: float = 10.0
+    tau_g: float = 2.0
+    window_size: int = 35
+    tap_stride: int = 5
+    min_disp: float = 0.0
+    max_disp: float = 60.0
+    plane_penalty: float = 120.0
+    iterations: int = 3
+    # not read by either package (the refinement ladder stops at 0.1)
+    refine_end_dz: float = 0.1
+    # "grad_sign": the GPU kernel's active metric (sign-of-gradient census,
+    # .cu:981-983); "adgrad": the CPU pm dissimilarity
+    # (1-alpha)*min(L1color, tau_c) + alpha*min(L1grad, tau_g) (pm.cpp:97-104)
+    metric: str = "grad_sign"
+    # Storage dtype of the per-tap feature maps (padded color, gray and
+    # gradient images): "bfloat16" halves the bytes plane_cost reads.
+    # Features are 0..255, so bf16 quantizes them to about one gray level;
+    # every L1, weight and sum runs in float32 after the loads.
+    feature_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class CoupledConfig:
+    """Coupled PatchMatch <-> variational engine (the reference's Family E
+    data-step set: evaluateCost_huber src/PatchMatchStereoGPU.cu:3033-3271,
+    stereoMatching_huber :3273-3581, huberROFSmooth :3903-4073, and the
+    AL-WTA MCCNN_ALTV_CostVolumeWTA :4748-4803 with the alternation loop
+    :7331-7727).
+
+    Constants cited: lambda_data=50 (.cu:3299), window stride 5
+    (:3126-3128), weight gamma 255/5 on [0,1] colors = 5 on [0,255]
+    (:3047), out-of-range tap cost 1.0 / weight 0.7 (:3253-3254), volume
+    lerp clamp 0.5 (:3200), Huber eps 0.001 (:3938), primal/dual steps
+    1/sqrt(8) (:3940,:4046). The theta coupling schedule ramps linearly
+    from theta_start to theta_end.
+    """
+
+    max_disp: int = 60
+    window_size: int = 35
+    tap_stride: int = 5
+    gamma_pmsh: float = 5.0
+    lambda_data: float = 50.0
+    oob_cost: float = 1.0
+    oob_weight: float = 0.7
+    clamp: float = 0.5
+    huber_eps: float = 0.001
+    outer_iterations: int = 10
+    smooth_iters: int = 10
+    theta_d_start: float = 5.0
+    theta_d_end: float = 50.0
+    theta_n_start: float = 0.5
+    theta_n_end: float = 5.0
+    # the AL-WTA variant (coupled_wta_stereo, not ported yet): lambda_d
+    # weights the volume term; theta_inv grows by 1/(1 - beta*i) per round
+    # (.cu:7532)
+    lambda_d: float = 1.0
+    theta_inv0: float = 1.0
+    beta_anneal: float = 0.01
+
+
+@dataclass(frozen=True)
+class WeightedMedianConfig:
+    """Color-weighted median filter (ref: pm.cpp:396-435 with 35x35 window;
+    GPU 21x21 occluded-only variant .cu:2436-2600)."""
+
+    window_size: int = 21
+    gamma: float = 10.0  # not read: weighted_median's gamma follows its caller's intensity range
+    tap_stride: int = 2
+    bisect_iters: int = 10
+    occluded_only: bool = True  # not read: the caller passes the mask
 
 
 @dataclass(frozen=True)

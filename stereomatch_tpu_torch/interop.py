@@ -1,8 +1,8 @@
 """State carried across from the JAX package, as numpy arrays.
 
 This system has no weights: the state a frame depends on is the segment
-forest, the RNG key and, for the video server, the maps and forests it
-chains from frame to frame. These converters let that state feed both
+forest, the RNG key, PatchMatch's plane maps and, for the video server,
+the maps and forests it chains from frame to frame. These converters let that state feed both
 packages, so a comparison isolates the code under test. None imports jax;
 the caller hands over `np.asarray` copies.
 """
@@ -19,7 +19,7 @@ from .ops.device_forest import check_forest_capacity
 from .ops.mst import ForestArrays
 
 __all__ = ["forest_dict_from_numpy", "forest_from_numpy", "key_from_jax",
-           "native_forest_from_numpy", "video_state_from_jax"]
+           "native_forest_from_numpy", "plane_state_from_numpy", "video_state_from_jax"]
 
 # the entries of the port's build_forest_device dict: the ForestArrays
 # tensors and three more; the JAX dict also holds its scan maps, which the
@@ -82,6 +82,14 @@ def key_from_jax(key, device: torch.device | str = "cuda") -> torch.Tensor:
     if k.shape != (2,) or k.dtype != np.uint32:
         raise ValueError(f"expected a raw uint32[2] key, got {k.dtype}{list(k.shape)}")
     return torch.from_numpy(k.astype(np.int64)).to(device)
+
+
+def plane_state_from_numpy(nx, ny, d, device: torch.device | str = "cuda"):
+    """The port's `ops.patchmatch.PlaneState` from numpy copies of a JAX
+    PlaneState's (nx, ny, d) maps, as float32."""
+    from .ops.patchmatch import PlaneState
+
+    return PlaneState(*(_tensor(np.asarray(a, np.float32), device) for a in (nx, ny, d)))
 
 
 def video_state_from_jax(server, prev, prev_forest, since_key: int, key_frac: float | None,

@@ -3,6 +3,10 @@
   costvolume  — AD+gradient volume + guided filter + WTA + Huber denoise
                 (ref: costVolumeStereoPlusVariationalDenoise,
                 src/PatchMatchStereoGPU.cu:8776-9410)
+  coupled     — PatchMatch over a cost volume alternating with Huber-ROF
+                smoothing of the (d, nx, ny) fields
+  patchmatch  — slanted-plane PatchMatch with the plane fill and the
+                colour-weighted median (ref: PatchMatchStereoGPU)
   mst         — Stereo3DMST segment-tree aggregation and its helpers
   sgbm_mst    — the SGBM-seeded 3DMST frame, the temporal (video) frame
                 and the offline compositions

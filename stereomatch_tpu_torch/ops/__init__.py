@@ -1,7 +1,8 @@
 """Tensor ops of the port: filters, matching costs (census, AD+gradient,
 windowed), disparity selection, post-processing (LR checks, fill), the
 variational denoise, speckle filtering, SGBM and BM, forest construction
-and the 3DMST tree filter, plus the wrappers of the hand-written CUDA
+and the 3DMST tree filter, PatchMatch and its coupled variant
+(`patchmatch`, `coupled`), plus the wrappers of the hand-written CUDA
 kernels (`sgbm_cuda`, `mst_scan_cuda`)."""
 
 from .filters import (  # noqa: F401
@@ -28,6 +29,7 @@ from .postprocess import (  # noqa: F401
     lr_consistency,
     lr_occlusion_mask,
     nearest_valid_fill,
+    weighted_median,
 )
 from .variational import (  # noqa: F401
     edge_weight,

@@ -1,14 +1,18 @@
-"""Post-processing: nearest-valid fill, the left-right consistency checks
-and the occlusion fill of both views (port of
-`stereomatch_tpu/ops/postprocess.py`; its `weighted_median` is not ported
-yet, ROADMAP.md). Disparities round half to even in both packages
-(`torch.round`, `jnp.round`)."""
+"""Post-processing: nearest-valid fill, the left-right consistency checks,
+the occlusion fill of both views and the colour-weighted median (port of
+`stereomatch_tpu/ops/postprocess.py`). Disparities round half to even in
+both packages (`torch.round`, `jnp.round`)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["lr_occlusion_mask", "nearest_valid_fill", "lr_check_fill_pair", "lr_consistency"]
+from ..config import WeightedMedianConfig
+from .segmentation import channel_l1
+
+__all__ = ["lr_occlusion_mask", "nearest_valid_columns", "nearest_valid_fill", "lr_check_fill_pair",
+           "lr_consistency", "weighted_median"]
 
 
 def lr_check_fill_pair(disp_l, disp_r, max_disp: float, min_disp: float):
@@ -52,15 +56,24 @@ def lr_occlusion_mask(
     return ~valid
 
 
+def nearest_valid_columns(valid: torch.Tensor):
+    """(xs, left, right) for an (H, W) mask: each pixel's column, the nearest
+    valid column at or left of it (-1 if none) and at or right of it (W if
+    none), as JAX's cummax and reverse cummin."""
+    h, w = valid.shape
+    xs = torch.arange(w, device=valid.device).expand(h, w)
+    left = torch.cummax(torch.where(valid, xs, -1), dim=1).values
+    right = torch.cummin(torch.where(valid, xs, w).flip(1), dim=1).values.flip(1)
+    return xs, left, right
+
+
 def nearest_valid_fill(disp: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Fill invalid pixels from row neighbours (reference rule,
     src/Stereo3DMST.cpp:676-708): the nearest valid value to the left,
     replaced by the nearest valid value to the right when that is smaller
     (or when there is no left one); 0 when the row has none."""
-    h, w = disp.shape
-    xs = torch.arange(w, device=disp.device).expand(h, w)
-    left_idx = torch.cummax(torch.where(valid, xs, -1), dim=1).values
-    right_idx = torch.cummin(torch.where(valid, xs, w).flip(1), dim=1).values.flip(1)
+    w = disp.shape[1]
+    _, left_idx, right_idx = nearest_valid_columns(valid)
     has_l = left_idx >= 0
     has_r = right_idx < w
     fl = torch.gather(disp, 1, left_idx.clamp(0, w - 1))
@@ -96,3 +109,71 @@ def lr_consistency(
     if fill:
         disp = nearest_valid_fill(disp, valid)
     return disp, valid
+
+
+def weighted_median(
+    disp: torch.Tensor,
+    bgr: torch.Tensor,
+    occluded: torch.Tensor,
+    cfg: WeightedMedianConfig = WeightedMedianConfig(),
+    normalized_intensity: bool = True,
+) -> torch.Tensor:
+    """Colour-weighted median of the occluded pixels (ref:
+    weightedMedianFilter, src/PatchMatchStereoGPU.cu:2436-2600).
+
+    Over the window (taps on a `cfg.tap_stride` grid, dy outer, dx inner),
+    each tap weighs exp(-sqrt(L1_bgr(center, tap)) * gamma), gamma 25.5 for
+    [0, 1] images and 0.1 for [0, 255] ones (.cu:2474); out-of-bounds taps
+    weigh 0 (disparity and colour are zero-padded). The median is the
+    smallest tap disparity whose cumulative weight reaches half the total:
+    a range pass, `cfg.bisect_iters` bisections of S(m) = sum_j w_j [d_j <=
+    m], then the exact snap to the smallest tap value in the final bracket;
+    where no tap lies in it, the pixel keeps `disp`. Fixed pass counts, no
+    host sync. Only pixels with `occluded` True are replaced."""
+    win_r = cfg.window_size // 2
+    gamma = 25.5 if normalized_intensity else 0.1
+    h, w = disp.shape
+    offs = range(-win_r, win_r + 1, cfg.tap_stride)
+    taps = [(dy, dx) for dy in offs for dx in offs]
+    pad_d = F.pad(disp, (win_r, win_r, win_r, win_r))
+    pad_c = F.pad(bgr, (0, 0, win_r, win_r, win_r, win_r))
+    in_y = torch.arange(h, device=disp.device)[:, None]
+    in_x = torch.arange(w, device=disp.device)[None, :]
+
+    # each pass reads every tap's (disparity, weight); they are computed
+    # once here, as each of JAX's passes computes them alike
+    d_taps, w_taps = [], []
+    for dy, dx in taps:
+        rows = slice(dy + win_r, dy + win_r + h)
+        cols = slice(dx + win_r, dx + win_r + w)
+        d_taps.append(pad_d[rows, cols])
+        cdiff = torch.sqrt(channel_l1(pad_c[rows, cols] - bgr))
+        inb = (in_y + dy >= 0) & (in_y + dy < h) & (in_x + dx >= 0) & (in_x + dx < w)
+        w_taps.append(torch.where(inb, torch.exp(-cdiff * gamma), 0.0))
+
+    wsum = torch.zeros_like(disp)
+    dmin = torch.full_like(disp, float("inf"))
+    dmax = torch.full_like(disp, -float("inf"))
+    for d_t, wgt in zip(d_taps, w_taps):
+        live = wgt > 0.0
+        dmin = torch.minimum(dmin, torch.where(live, d_t, float("inf")))
+        dmax = torch.maximum(dmax, torch.where(live, d_t, -float("inf")))
+        wsum = wsum + wgt
+    half = 0.5 * wsum
+
+    # bisection, invariant S(lo) < half <= S(hi)
+    lo, hi = dmin - 1.0, dmax
+    for _ in range(cfg.bisect_iters):
+        mid = 0.5 * (lo + hi)
+        s = torch.zeros_like(disp)
+        for d_t, wgt in zip(d_taps, w_taps):
+            s = s + torch.where(d_t <= mid, wgt, 0.0)
+        upper = s >= half
+        lo, hi = torch.where(upper, lo, mid), torch.where(upper, mid, hi)
+
+    med = torch.full_like(disp, float("inf"))
+    for d_t, wgt in zip(d_taps, w_taps):
+        inside = (wgt > 0.0) & (d_t > lo) & (d_t <= hi)
+        med = torch.minimum(med, torch.where(inside, d_t, float("inf")))
+    med = torch.where(torch.isfinite(med), med, disp)
+    return torch.where(occluded, med, disp)

@@ -1,7 +1,7 @@
 """End-to-end pipeline entry points (port of `stereomatch_tpu/pipelines.py`):
 host images in, RGB or gray, uint8 or float; numpy disparity maps out.
-The census, BM, SGBM and cost-volume pipelines and the 3DMST pipelines
-are ported; the PatchMatch pipeline is not yet (ROADMAP.md).
+The census, BM, SGBM, cost-volume, 3DMST and PatchMatch pipelines are
+all ported.
 """
 
 from __future__ import annotations
@@ -9,7 +9,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import BMConfig, CensusConfig, CostVolumePipelineConfig, MSTConfig, SGBMConfig
+from .config import (
+    BMConfig, CensusConfig, CostVolumePipelineConfig, MSTConfig, PatchMatchConfig, SGBMConfig,
+)
 
 __all__ = [
     "check_stereo_pair",
@@ -19,6 +21,7 @@ __all__ = [
     "sgbm_pipeline",
     "mst_pipeline",
     "sgbm_mst_pipeline",
+    "patchmatch_pipeline",
     "to_bgr255",
 ]
 
@@ -168,4 +171,20 @@ def sgbm_mst_pipeline(left, right, left_vol=None, right_vol=None, cfg: MSTConfig
     lv, rv = _volumes(left, right, left_vol, right_vol, cfg.max_disp, device)
     out = sgbm_mst_stereo(to_bgr255(left, device), to_bgr255(right, device), lv, rv, cfg,
                           seed=seed, fine_iterations=fine_iterations, device=device)
+    return out.left_disp.cpu().numpy(), out.right_disp.cpu().numpy()
+
+
+def patchmatch_pipeline(left, right, cfg: PatchMatchConfig | None = None, seed: int = 0,
+                        postprocess: bool = True, device: torch.device | str = "cuda"):
+    """Slanted-plane PatchMatch (ref executable: PatchMatchStereoGPU,
+    src/PatchMatchStereoGPU.cu:2602-3023) on an RGB or gray pair, keyed by
+    `seed` as the JAX package keys it. Returns (left_disp, right_disp) as
+    numpy float32, post-processed unless `postprocess` is False."""
+    from . import random as trandom
+    from .models.patchmatch import patchmatch_pipeline as run_pm
+
+    cfg = cfg or PatchMatchConfig()
+    check_stereo_pair(left, right)
+    out = run_pm(trandom.PRNGKey(seed, device), to_bgr255(left, device),
+                 to_bgr255(right, device), cfg, postprocess=postprocess)
     return out.left_disp.cpu().numpy(), out.right_disp.cpu().numpy()

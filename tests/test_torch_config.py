@@ -20,6 +20,7 @@ from stereomatch_tpu_torch import synthetic as tsynthetic
 CONFIG_CLASSES = [
     "CensusConfig", "BMConfig", "SGBMConfig", "CostVolumeConfig", "ZNCCConfig",
     "GuidedFilterConfig", "DenoiseConfig", "MSTConfig", "CostVolumePipelineConfig",
+    "PatchMatchConfig", "WeightedMedianConfig", "CoupledConfig",
 ]
 
 
@@ -132,6 +133,7 @@ def test_render_sequence_bytes_equal_jax(seed, n, h, w, d, drift):
     ("pipelines", "bm_pipeline"),
     ("pipelines", "sgbm_pipeline"),
     ("pipelines", "costvolume_pipeline"),
+    ("pipelines", "patchmatch_pipeline"),
     ("ops.segmentation", "segment_image"),
     ("serving", "compile_sgbm_mst_server"),
     ("serving", "compile_mst_video_server"),
@@ -139,6 +141,7 @@ def test_render_sequence_bytes_equal_jax(seed, n, h, w, d, drift):
     ("interop", "forest_dict_from_numpy"),
     ("interop", "forest_from_numpy"),
     ("interop", "key_from_jax"),
+    ("interop", "plane_state_from_numpy"),
     ("ops.mst", "refine_deltas"),
     ("ops.mst", "forest_arrays"),
 ])

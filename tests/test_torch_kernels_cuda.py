@@ -375,3 +375,40 @@ def test_video_temporal_frame_launches_k2_only(cuda, reuse_forest):
     assert aggregate_8path_cuda.launches == k1
     assert (segmented_cumsum.launches - k2, ancestor_sums.launches - k2a) == (12, 12)
     assert dl.shape == (h, w) and np.isfinite(dl).all() and np.isfinite(dr).all()
+
+
+@pytest.mark.cuda
+def test_patchmatch_on_card_repeats_and_tracks_cpu(cuda):
+    """PatchMatch (no hand kernel; plain ops on the card) at 48x64: two runs
+    from one key give bit-equal planes (no atomics on the path), the rounds
+    enqueue without a host sync, and the card's run agrees with the CPU's
+    from the same key within 0.1 px on >= 95% of pixels (exp, sqrt and the
+    division by a scalar round differently on the two devices, which can
+    flip a near tie)."""
+    from stereomatch_tpu_torch import random as trandom
+    from stereomatch_tpu_torch.config import PatchMatchConfig
+    from stereomatch_tpu_torch.ops.patchmatch import patchmatch_stereo
+    from stereomatch_tpu_torch.synthetic import render_scene
+
+    sc = render_scene(0, 48, 64, 16)
+    cfg = PatchMatchConfig(max_disp=16.0, window_size=15, tap_stride=3, metric="adgrad",
+                           iterations=2)
+
+    def run(dev):
+        l = torch.from_numpy(sc.left.astype(np.float32)).to(dev)
+        r = torch.from_numpy(sc.right.astype(np.float32)).to(dev)
+        key = trandom.PRNGKey(0, dev)
+        torch.cuda.synchronize()
+        if dev == cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            left, right, _, _ = patchmatch_stereo(key, l, r, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return [t.cpu().numpy() for t in (*left, *right)]
+
+    a, b, host = run(cuda), run(cuda), run(torch.device("cpu"))
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    for i in (2, 5):  # the disparity maps of both views
+        assert np.mean(np.abs(a[i] - host[i]) <= 0.1) >= 0.95
