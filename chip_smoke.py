@@ -39,8 +39,20 @@ coupled_patchmatch_stereo` on the built-in guided left volume): one warm
 call each, counted (no kernel), one timed call, peak device memory,
 whether the two calls' maps are bit-equal, the GT digits gated, and the
 window cost each runs (`plane_cost`, `hybrid_plane_cost`) timed at full
-size with its device kernels a call and its calls an engine call. Every
-path's K1 / K2 launches are counted and held to its frame mix. Also reports whether the server gives
+size with its device kernels a call and its calls an engine call. After
+them, the band-streamed SGBM at the 2048x1536 FLIR frame and 256
+disparities (`pipelines.sgbm_pipeline` with `SGBMConfig()` and speckle,
+which streams 12 bands of 128 rows through K1's carry entry K1c: one warm
+call counted, 3 timed, peak memory, GT, bit-equality), the banded SGBM
+against the whole frame (ties flipped under 0.2%, both peaks), K1 at D = 256 on
+the whole frame's cost and K1c on one band with its neighbours' carries
+against their twins (bitwise on integer costs, timed beside the bound);
+then `models.mst.mst_stereo_c2f` on the first frame with 2TGV and with no
+prior (gated, its K2 / K2a launches held), the NL2TGV and TV priors at
+full size (timed, device kernels a call), and
+`models.coupled.coupled_wta_stereo` on the guided left volume (gated,
+bit-equality). Every path's K1 / K1c / K2 / K2a launches are counted and
+held to its frame mix. Also reports whether the server gives
 the same maps twice for the same frame and seed. Fails (non-zero exit,
 no result line) on any fault, when the host forest builder falls back
 to its Python stand-in, and when no CUDA device is present. Imports nothing of jax or of the JAX package, and asserts that
@@ -75,18 +87,18 @@ TEMPORAL_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.08}
 # launch), K2 2 views x (1 + 4 iterations) x 4 scans, half of them the
 # node-order scan (K2) and half the fused ancestor sum (K2a); per temporal
 # frame at 2 iterations: no SGBM, K2 2 x (1 + 2) x 4
-KEY_LAUNCHES = {"K1": 1, "K2": 20, "K2a": 20}
-TEMPORAL_LAUNCHES = {"K1": 0, "K2": 12, "K2a": 12}
+KEY_LAUNCHES = {"K1": 1, "K1c": 0, "K2": 20, "K2a": 20}
+TEMPORAL_LAUNCHES = {"K1": 0, "K1c": 0, "K2": 12, "K2a": 12}
 # the host forest and random init (MSTConfig's defaults but for these:
 # the GT battery's c and min_cc_size, tests/test_gt_battery.py)
 FLAT_CFG = dict(max_disp=MAX_DISP, iterations=100, min_cc_size=100, c=2000.0)
 # launches per frame at carry_iters=2 (3 node scans and 3 ancestor sums a
 # tree filter): flat, 2 views x 100 iterations; seeded, 2 views x (the
 # seed's cost + 10 iterations) and one SGBM seed; fused, 2 views x 30
-FLAT_LAUNCHES = {"K1": 0, "K2": 600, "K2a": 600}
-SEEDED_HOST_LAUNCHES = {"K1": 1, "K2": 66, "K2a": 66}
+FLAT_LAUNCHES = {"K1": 0, "K1c": 0, "K2": 600, "K2a": 600}
+SEEDED_HOST_LAUNCHES = {"K1": 1, "K1c": 0, "K2": 66, "K2a": 66}
 FUSED_ITERS = 30
-FUSED_LAUNCHES = {"K1": 0, "K2": 180, "K2a": 180}
+FUSED_LAUNCHES = {"K1": 0, "K1c": 0, "K2": 180, "K2a": 180}
 # tests/test_device_forest.py::test_mst_stereo_device_backend_absolute_gt
 FUSED_GATES = {"valid": 0.35, "epe": 1.5, "bad2": 0.10}
 # the classical engines on the first frame, each scored as
@@ -107,6 +119,32 @@ CLASSIC_TIMED = 3  # timed calls after one warm call
 # EPE 0.1541 / bad2 0.00111), so both are gated there
 PM_CFG = dict(max_disp=float(MAX_DISP - 1), iterations=10, metric="adgrad")
 PM_GATES = {"epe": 0.2, "bad2": 0.02}
+# the band-streamed SGBM at the reference's 2048x1536 FLIR frame with
+# SGBMConfig()'s 256 disparities (above the 2 GiB band threshold), in bands
+# of 128 rows: 12 bands, 11 up-sweep launches of K1c (the top band's
+# outgoing carry is never read) and 12 down-sweep ones a call. The JAX
+# package misses tests/test_gt_battery.py's SGBM gates on this scene (its
+# pipeline on the CPU, jax_classic_gt.py sgbm_banded: EPE 0.69884, D1
+# 0.014728; min_disp 16 and the 272 unevaluated columns count as errors),
+# so the gates are its own digits plus 10%
+BAND_SHAPE = (1536, 2048, 256)
+BAND_LAUNCHES = {"K1": 0, "K1c": 23, "K2": 0, "K2a": 0}
+BAND_GATES = {"epe": 0.76872, "d1_all": 0.016201}
+BAND_TIMED = 3
+# c2f at the first frame as tests/test_engine_gates.py runs it, with the
+# battery's c and min_cc_size, on the built-in guided volumes; launches at
+# carry_iters=2: 2 views x (30 coarse + 1 seed cost + 10 fine) x 3. The
+# JAX package meets the battery's MST gates there (jax_classic_gt.py c2f
+# c2f_none: valid 0.4024 / EPE 0.4002 / bad2 0.00507 with 2TGV, 0.4385 /
+# 0.8225 / 0.00925 without), so both are gated there
+C2F_CFG = dict(max_disp=MAX_DISP, iterations=30, smoothness_prior="2TGV",
+               smoothness_iters=60, min_cc_size=100, c=2000.0)
+C2F_RUN = dict(seed=0, k=2, coarse_iterations=30, fine_iterations=10)
+C2F_LAUNCHES = {"K1": 0, "K1c": 0, "K2": 246, "K2a": 246}
+# coupled_wta_stereo (CoupledConfig(max_disp=127), TGVParams()) on the
+# built-in guided left volume: JAX's digits (jax_classic_gt.py
+# coupled_wta: EPE 0.20924, bad2 0.00088137) plus 10%
+CWTA_GATES = {"epe": 0.23017, "bad2": 0.00096951}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -254,14 +292,15 @@ def counted(run):
     """Run one path with every launch counter set to 0 just before it;
     returns (its result, the counts just after it)."""
     from stereomatch_tpu_torch.ops.mst_scan_cuda import ancestor_sums, segmented_cumsum
-    from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
+    from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
 
     aggregate_8path_cuda.launches = 0
+    aggregate_paths_cuda.launches = 0
     segmented_cumsum.launches = 0
     ancestor_sums.launches = 0
     out = run()
-    return out, {"K1": aggregate_8path_cuda.launches, "K2": segmented_cumsum.launches,
-                 "K2a": ancestor_sums.launches}
+    return out, {"K1": aggregate_8path_cuda.launches, "K1c": aggregate_paths_cuda.launches,
+                 "K2": segmented_cumsum.launches, "K2a": ancestor_sums.launches}
 
 
 def expect_launches(tag, got, keys, temporals):
@@ -470,8 +509,8 @@ def classic_paths(scene, dev) -> dict:
         _, launches[path] = counted(lambda: maps.append(run()))
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        expect_exact(path, launches[path], {"K1": int(name == "sgbm"), "K2": 0, "K2a": 0},
-                     "one call")
+        expect_exact(path, launches[path],
+                     {"K1": int(name == "sgbm"), "K1c": 0, "K2": 0, "K2a": 0}, "one call")
         secs = []
         for _ in range(CLASSIC_TIMED):
             torch.cuda.synchronize()
@@ -556,7 +595,7 @@ def patchmatch_paths(scene, dev) -> dict:
         _, launches[name] = counted(lambda: maps.append(run()))
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        expect_exact(name, launches[name], {"K1": 0, "K2": 0, "K2a": 0}, "one call")
+        expect_exact(name, launches[name], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0}, "one call")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         maps.append(run())
@@ -605,6 +644,297 @@ def patchmatch_paths(scene, dev) -> dict:
             f"({ms * calls / 1e3:.2f} s of them)")
     del views, planes, lvol, left, right
     log(f"PatchMatch engines section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
+def banded_sgbm_path(dev) -> tuple[dict, dict]:
+    """The band-streamed SGBM at BAND_SHAPE: `pipelines.sgbm_pipeline` with
+    SGBMConfig() and speckle on a rendered frame, which takes the band
+    branch; one warm call (its launches counted and held to
+    BAND_LAUNCHES), BAND_TIMED timed calls, the peak device memory above
+    the resident, the GT digits gated, whether the maps are bit-equal call
+    to call. Then the banded SGBM against the whole-frame sgbm_disparity
+    (both peaks): validity or a disparity step flipped on under 0.2% of
+    the frame's pixels, and on the same gray rounded to integers flips
+    (beyond 1e-5 px) under 0.2%; K1 at D = 256 on the
+    whole frame's cost against its twin, and K1c against its twin on one
+    band with the carries the bands around it hand it. Returns (each path's
+    launch counts, the kernel rows of K1 at D = 256 and of K1c)."""
+    from stereomatch_tpu_torch import pipelines
+    from stereomatch_tpu_torch.config import SGBMConfig
+    from stereomatch_tpu_torch.eval import disparity_metrics
+    from stereomatch_tpu_torch.ops.sgbm import (
+        SGBM_DIRECTIONS, _band_cost, aggregate_8path, aggregate_paths, sgbm_cost_volume,
+        sgbm_disparity, sgbm_disparity_banded,
+    )
+    from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
+    from stereomatch_tpu_torch.synthetic import render_scene, scene_eval_mask
+
+    t_section = time.perf_counter()
+    h, w, d = BAND_SHAPE
+    t0 = time.perf_counter()
+    sc = render_scene(SCENE_SEED, h, w, d)
+    log(f"render: {time.perf_counter() - t0:.1f} s (one frame {h}x{w}, max_disp {d})")
+    rgb_l, rgb_r = sc.left[..., ::-1], sc.right[..., ::-1]  # the scenes are BGR
+    cfg = SGBMConfig()
+    if h * w * cfg.num_disp * 4 <= pipelines.SGBM_BAND_THRESHOLD_BYTES:
+        raise AssertionError(f"{h}x{w}x{cfg.num_disp} is below the band threshold")
+    launches = {}
+
+    def run():
+        return pipelines.sgbm_pipeline(rgb_l, rgb_r, cfg, speckle=True, device=dev)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    maps = []
+    t0 = time.perf_counter()
+    _, launches["sgbm_banded_pipeline"] = counted(lambda: maps.append(run()))
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    expect_exact("sgbm_banded_pipeline", launches["sgbm_banded_pipeline"], BAND_LAUNCHES,
+                 "one call: 12 bands of 128 rows, 11 up-sweep + 12 down-sweep K1c launches")
+    secs = []
+    for _ in range(BAND_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps.append(run())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak_band = torch.cuda.max_memory_allocated() - resident
+    est = np.asarray(maps[0], np.float32)
+    if est.shape != (h, w) or not np.isfinite(est).all():
+        raise AssertionError("sgbm_banded: bad output shape or non-finite values")
+    mm = disparity_metrics(torch.from_numpy(est), torch.from_numpy(sc.disp_left),
+                           torch.from_numpy(scene_eval_mask(sc)))
+    digits = ", ".join(f"{k} {mm[k]:.5f}" for k in ("epe", "bad2", "d1_all"))
+    if not all(mm[k] < limit for k, limit in BAND_GATES.items()):
+        raise AssertionError(f"sgbm_banded misses its GT gates {BAND_GATES}: {digits}")
+    same = all(np.array_equal(maps[0], m) for m in maps[1:])
+    log(f"sgbm_banded_pipeline {h}x{w}x{cfg.num_disp} (SGBMConfig(), speckle): warm "
+        f"{warm:.3f} s, then {['%.4f' % x for x in secs]} s; peak device memory "
+        f"{peak_band / 1e9:.2f} GB above the {resident / 1e9:.2f} GB resident; GT {digits} "
+        f"(gates {BAND_GATES}); maps of the {len(maps)} calls bit-equal: {same}")
+    del maps
+
+    # the banded SGBM against the whole frame, on the same gray
+    gl, gr = pipelines._gray255(rgb_l, dev), pipelines._gray255(rgb_r, dev)
+    peaks = {}
+
+    def peak_of(name, fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated() - base, time.perf_counter() - t0)
+        return out
+
+    band = peak_of("banded", lambda: sgbm_disparity_banded(gl, gr, cfg, device=dev))
+    mono, launches["sgbm_monolithic_2048"] = counted(
+        lambda: peak_of("monolithic", lambda: sgbm_disparity(gl, gr, cfg)))
+    expect_exact("sgbm_monolithic_2048", launches["sgbm_monolithic_2048"],
+                 {"K1": 1, "K1c": 0, "K2": 0, "K2a": 0}, "one whole-frame call")
+
+    def flip_share(a, b, tol):
+        return ((a.valid != b.valid) | ((a.disparity - b.disparity).abs() > tol)).double().mean()
+
+    # On the float luma the block sums' cumsum prefixes run over 1536 rows
+    # in the whole frame and over 134 in a band strip, so the costs differ
+    # in their last bits (the JAX package's docstring says so, and its own
+    # two functions differ the same way), and the subpixel offset divides
+    # S's differences by a denominator as small as 1: the maps differ in
+    # their subpixel bits on many pixels, while only a cost tie resolved
+    # the other way moves a disparity by a step or flips validity. On the
+    # same gray rounded to integers every sum is exact, so any flip there
+    # is the banded SGBM's own (tests/test_sgbm_banded.py's bound).
+    jitter, ties = flip_share(mono, band, 1e-5).item(), flip_share(mono, band, 0.1).item()
+    del band, mono
+    band_i = sgbm_disparity_banded(gl.round(), gr.round(), cfg, device=dev)
+    mono_i = sgbm_disparity(gl.round(), gr.round(), cfg)
+    exact = flip_share(mono_i, band_i, 1e-5).item()
+    del band_i, mono_i
+    log(f"sgbm_disparity_banded vs sgbm_disparity {h}x{w}x{cfg.num_disp}: the float luma's maps "
+        f"differ by more than 1e-5 px or in validity on {jitter:.6f} of pixels, by more than "
+        f"0.1 px or in validity on {ties:.6f}; the integer gray's on {exact:.6f}; peak device "
+        f"memory above the start {peaks['banded'][0] / 1e9:.2f} GB banded "
+        f"({peaks['banded'][1]:.3f} s), {peaks['monolithic'][0] / 1e9:.2f} GB whole frame "
+        f"({peaks['monolithic'][1]:.3f} s)")
+    if not (ties < 0.002 and exact < 0.002):
+        raise AssertionError(f"banded vs whole-frame SGBM: {ties:.5f} of the float luma's pixels "
+                             f"and {exact:.5f} of the integer gray's flip")
+    if not peaks["banded"][0] < peaks["monolithic"][0]:
+        raise AssertionError("the banded SGBM's peak is not below the whole frame's")
+
+    p1, p2 = (float(p) for p in cfg.resolved_p1p2())
+    margin = cfg.min_disp + cfg.num_disp
+    rows = {}
+    # ---- K1 at D = 256 on the whole frame's cost, as the K1 block at D = 128 ----
+    c = sgbm_cost_volume(gl, gr, cfg)[:, margin:].contiguous()
+    got = aggregate_8path_cuda(c, p1, p2, cfg.num_paths)
+    want = aggregate_8path(c, p1, p2, cfg.num_paths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=0.0)
+    err = (got - want).abs().max().item()
+    del got, want
+    ci = c.round()
+    if not torch.equal(aggregate_8path_cuda(ci, p1, p2, cfg.num_paths),
+                       aggregate_8path(ci, p1, p2, cfg.num_paths)):
+        raise AssertionError("K1 != twin on integer costs at D = 256")
+    del ci
+    ms = cuda_time_ms(lambda: aggregate_8path_cuda(c, p1, p2, cfg.num_paths), 5)
+    plain = cuda_time_ms(lambda: aggregate_8path(c, p1, p2, cfg.num_paths), 1)
+    bms, by = bound(c.numel() * 8, 8.0 * cfg.num_paths * c.numel())
+    rows["K1_d256"] = {"shape": list(c.shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                       "bound_ms": bms, "bound_by": by}
+    log(f"K1 float32 {tuple(c.shape)}: within rtol {K1_RTOL} of the twin (max |diff| {err:.3g}); "
+        f"integer costs bitwise equal; kernel {ms:.3f} ms, twin {plain:.1f} ms, bound "
+        f"{bms:.3f} ms ({by})")
+    del c
+
+    # ---- K1c on band 1 of the frame, with the carries its neighbours hand it ----
+    rows_idx = torch.clamp(torch.arange(-3, 4 * 128 + 3, device=dev), 0, h - 1)
+    lp, rp = gl.index_select(0, rows_idx), gr.index_select(0, rows_idx)
+    dirs = SGBM_DIRECTIONS[cfg.num_paths]
+    k1c_err = 0.0
+    for integer in (False, True):
+        band_c = [_band_cost(lp, rp, b, 128, h, margin, cfg) for b in range(3)]
+        if integer:
+            band_c = [x.round() for x in band_c]
+        down = torch.empty((3,) + band_c[0].shape[1:], device=dev)
+        aggregate_paths_cuda(band_c[0], p1, p2, dirs[:3], None, down, with_s=False)
+        up = torch.empty_like(down)
+        aggregate_paths_cuda(band_c[2], p1, p2, dirs[3:6], None, up, with_s=False)
+        carry = torch.cat([down, up])
+        out, out_twin = torch.empty_like(carry), torch.empty_like(carry)
+        got = aggregate_paths_cuda(band_c[1], p1, p2, dirs, carry, out)
+        want = aggregate_paths(band_c[1], p1, p2, dirs, carry, out_twin)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out_twin):
+            raise AssertionError(f"K1c's carry != twin's (integer costs: {integer})")
+        if integer:
+            if not torch.equal(got, want):
+                raise AssertionError("K1c != twin on integer costs")
+        else:
+            torch.testing.assert_close(got, want, rtol=K1_RTOL, atol=0.0)
+            k1c_err = (got - want).abs().max().item()
+    cb = band_c[1]
+    ms = cuda_time_ms(lambda: aggregate_paths_cuda(cb, p1, p2, dirs, carry, out), 10)
+    plain = cuda_time_ms(lambda: aggregate_paths(cb, p1, p2, dirs, carry, out_twin), 1)
+    up_ms = cuda_time_ms(lambda: aggregate_paths_cuda(cb, p1, p2, dirs[3:6], up, down,
+                                                      with_s=False), 10)
+    # the band's C read once, S written once, the carries read and written once
+    bms, by = bound(cb.numel() * 8 + carry.numel() * 8, 8.0 * len(dirs) * cb.numel())
+    rows["K1c"] = {"shape": list(cb.shape), "max_abs_err": k1c_err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": bms, "bound_by": by, "up_sweep_ms": up_ms}
+    log(f"K1c {tuple(cb.shape)} (band 1 of {-(-h // 128)}, 8 directions, 6 carried): carries "
+        f"bitwise equal "
+        f"to the twin's, S within rtol {K1_RTOL} (max |diff| {k1c_err:.3g}), integer costs "
+        f"bitwise equal; kernel {ms:.3f} ms (the up sweep's 3 directions without S "
+        f"{up_ms:.3f} ms), twin {plain:.1f} ms, bound {bms:.4f} ms ({by})")
+    del band_c, carry, out, out_twin, got, want, lp, rp, gl, gr
+    log(f"band-streamed SGBM section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches, rows
+
+
+def c2f_prior_paths(scene, dev) -> dict:
+    """The coarse-to-fine 3DMST on `scene` as tests/test_engine_gates.py
+    runs it (C2F_CFG, C2F_RUN, host forest, the built-in guided volumes),
+    with 2TGV and then with no prior, each counted, timed and gated; then
+    the two other priors (NL2TGV, TV) through `_apply_smoothness` on the
+    prior-free (LR-checked) left map, timed with their device kernels a call
+    (profiler); then `coupled_wta_stereo` on the guided left volume: one
+    warm call and one timed, bit-equality, GT digits gated. Returns each
+    path's launch counts."""
+    from stereomatch_tpu_torch import pipelines
+    from stereomatch_tpu_torch.config import CoupledConfig, MSTConfig
+    from stereomatch_tpu_torch.eval import disparity_metrics
+    from stereomatch_tpu_torch.models.coupled import coupled_wta_stereo
+    from stereomatch_tpu_torch.models.mst import _apply_smoothness, mst_stereo_c2f
+    from stereomatch_tpu_torch.ops.tgv import TGVParams
+    from stereomatch_tpu_torch.synthetic import scene_eval_mask
+
+    t_section = time.perf_counter()
+    rgb_l, rgb_r = scene.left[..., ::-1], scene.right[..., ::-1]  # the scenes are BGR
+    lv, rv = pipelines._volumes(rgb_l, rgb_r, None, None, MAX_DISP, dev)
+    bl, br = pipelines.to_bgr255(rgb_l, dev), pipelines.to_bgr255(rgb_r, dev)
+    launches, left_none = {}, None
+    for prior in ("2TGV", "NONE"):
+        cfg = MSTConfig(**{**C2F_CFG, "smoothness_prior": prior})
+        path = f"c2f_{prior.lower()}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches[path] = counted(lambda: mst_stereo_c2f(bl, br, lv, rv, cfg, **C2F_RUN,
+                                                             device=dev))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        maps = (out.left_disp.cpu().numpy(), out.right_disp.cpu().numpy())
+        log(f"{path} (mst_stereo_c2f, k {C2F_RUN['k']}, {C2F_RUN['coarse_iterations']} coarse + "
+            f"{C2F_RUN['fine_iterations']} fine iterations, host forest, {prior} at "
+            f"{cfg.smoothness_iters} iterations): {sec:.3f} s, "
+            f"{gate(*maps, scene, GATES, path)}")
+        expect_exact(path, launches[path], C2F_LAUNCHES,
+                     "2 views x (30 coarse + 1 seed cost + 10 fine iterations) x 3")
+        if prior == "NONE":
+            left_none = out.left_disp
+        del out
+
+    # the other two priors at full size, on the prior-free left map
+    for prior in ("NL2TGV", "TV"):
+        cfg = MSTConfig(**{**C2F_CFG, "smoothness_prior": prior})
+
+        def refine():
+            return _apply_smoothness(left_none, bl, cfg)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = refine()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if u.shape != left_none.shape or not torch.isfinite(u).all():
+            raise AssertionError(f"{prior}: bad output shape or non-finite values")
+        nk, busy = device_trace(refine)
+        log(f"_apply_smoothness {prior} {tuple(u.shape)} ({cfg.smoothness_iters} iterations): "
+            f"{sec:.3f} s, {nk} device kernels a call busy {busy:.3f} ms (profiler)")
+    del left_none, rv, bl, br
+
+    # coupled_wta_stereo, the left luma its guide
+    rgb = np.asarray(rgb_l, np.float32)
+    luma = torch.from_numpy(0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2])
+    c_cfg = CoupledConfig(max_disp=MAX_DISP - 1)
+
+    def cwta():
+        return coupled_wta_stereo(lv, luma, c_cfg, TGVParams(), device=dev).disparity
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first, launches["coupled_wta"] = counted(cwta)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    expect_exact("coupled_wta", launches["coupled_wta"], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0},
+                 "one call")
+    t0 = time.perf_counter()
+    second = cwta()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    est = first.cpu()
+    if est.shape != scene.disp_left.shape or not torch.isfinite(est).all():
+        raise AssertionError("coupled_wta: bad output shape or non-finite values")
+    mm = disparity_metrics(est, torch.from_numpy(scene.disp_left),
+                           torch.from_numpy(scene_eval_mask(scene)))
+    digits = ", ".join(f"{k} {mm[k]:.5f}" for k in ("epe", "bad2", "d1_all"))
+    if not all(mm[k] < limit for k, limit in CWTA_GATES.items()):
+        raise AssertionError(f"coupled_wta misses its GT gates {CWTA_GATES}: {digits}")
+    log(f"coupled_wta {tuple(est.shape)}x{MAX_DISP} ({c_cfg.outer_iterations} rounds of "
+        f"{c_cfg.smooth_iters} TGV steps): warm {warm:.3f} s, then {sec:.3f} s; peak device "
+        f"memory {peak / 1e9:.2f} GB above the {resident / 1e9:.2f} GB resident; GT {digits} "
+        f"(gates {CWTA_GATES}); the two calls' maps bit-equal: {torch.equal(first, second)}")
+    del lv, first, second
+    log(f"c2f, priors and coupled-WTA section wall time {time.perf_counter() - t_section:.1f} s")
     return launches
 
 
@@ -814,6 +1144,10 @@ def main() -> int:
     by_path.update(classic_paths(sc0, dev))
     # the PatchMatch engines after them, for the same reason
     by_path.update(patchmatch_paths(sc0, dev))
+    # then the band-streamed SGBM, c2f with the priors and the coupled WTA
+    band_launches, band_rows = banded_sgbm_path(dev)
+    by_path.update(band_launches)
+    by_path.update(c2f_prior_paths(sc0, dev))
 
     # the port imports nothing of jax and nothing of the JAX package
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))
@@ -821,7 +1155,19 @@ def main() -> int:
         raise AssertionError(f"jax or the JAX package was imported: {from_jax}")
     # every path was held to its frame mix's launches above (K1 runs only
     # where a frame takes an SGBM seed); each kernel must have run
-    for k in ("K1", "K2", "K2a"):
+    kernels["K1"]["max_abs_err"] = max(kernels["K1"]["max_abs_err"],
+                                       band_rows["K1_d256"]["max_abs_err"])
+    kernels["K1"]["d256_whole_frame"] = band_rows["K1_d256"]
+    k1c = band_rows["K1c"]
+    kernels["K1c"] = {
+        "name": "sgbm_aggregate_carry", "route": "cuda",
+        "source": "stereomatch_tpu_torch/csrc/sgbm_aggregate.cu",
+        "replaces": "stereomatch_tpu/ops/sgbm_pallas.py:122",
+        "max_abs_err": k1c["max_abs_err"], "ms": k1c["ms"], "plain_ms": k1c["plain_ms"],
+        "bound_ms": k1c["bound_ms"], "bound_by": k1c["bound_by"], "library_ms": None,
+        "shape": k1c["shape"], "up_sweep_ms": k1c["up_sweep_ms"],
+    }
+    for k in ("K1", "K1c", "K2", "K2a"):
         counts = {path: c[k] for path, c in by_path.items()}
         if sum(counts.values()) <= 0:
             raise AssertionError(f"{k} was launched on no path: {counts}")
@@ -829,7 +1175,7 @@ def main() -> int:
         kernels[k]["launches_by_path"] = counts
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [kernels["K1"], kernels["K2"], kernels["K2a"]]}))
+    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K1c", "K2", "K2a")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -199,8 +199,6 @@ class MSTConfig:
     # restore the aggregation across segment cuts.
     max_log_range: float = 4.0
     carry_iters: int = 2
-    # "NONE" is the only prior ported (the others raise, ROADMAP.md), so
-    # smoothness_iters is not read
     smoothness_prior: str = "NONE"
     smoothness_iters: int = 50
     # divide the tree-filtered cost by the tree-filtered ONES volume
@@ -306,9 +304,8 @@ class CoupledConfig:
     theta_d_end: float = 50.0
     theta_n_start: float = 0.5
     theta_n_end: float = 5.0
-    # the AL-WTA variant (coupled_wta_stereo, not ported yet): lambda_d
-    # weights the volume term; theta_inv grows by 1/(1 - beta*i) per round
-    # (.cu:7532)
+    # the AL-WTA variant (coupled_wta_stereo): lambda_d weights the volume
+    # term; theta_inv grows by 1/(1 - beta*i) per round (.cu:7532)
     lambda_d: float = 1.0
     theta_inv0: float = 1.0
     beta_anneal: float = 0.01

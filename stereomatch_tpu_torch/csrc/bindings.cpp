@@ -23,23 +23,44 @@ void check_cuda_contig(const at::Tensor& t, const char* name) {
   TORCH_CHECK(t.is_contiguous(), name, " must be contiguous");
 }
 
+// K1 and its carry entry K1c. An empty s, carry_in or carry_out stands
+// for none (null in the launcher).
 void sgbm_aggregate(const at::Tensor& cost, at::Tensor s, const std::vector<int64_t>& dys,
-                    const std::vector<int64_t>& dxs, double p1, double p2) {
+                    const std::vector<int64_t>& dxs, double p1, double p2,
+                    const at::Tensor& carry_in, const at::Tensor& carry_out) {
   check_cuda_contig(cost, "cost");
-  check_cuda_contig(s, "s");
-  TORCH_CHECK(cost.dim() == 3 && s.sizes() == cost.sizes(), "cost and s must be (H, W, D)");
-  TORCH_CHECK(s.scalar_type() == at::kFloat, "s must be float32");
+  TORCH_CHECK(cost.dim() == 3, "cost must be (H, W, D)");
   const bool bf16 = cost.scalar_type() == at::kBFloat16;
   TORCH_CHECK(bf16 || cost.scalar_type() == at::kFloat, "cost must be float32 or bfloat16");
-  TORCH_CHECK(reinterpret_cast<uintptr_t>(cost.data_ptr()) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(s.data_ptr()) % 16 == 0,
-              "cost and s must be 16-byte aligned");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(cost.data_ptr()) % 16 == 0,
+              "cost must be 16-byte aligned");
   TORCH_CHECK(dys.size() == dxs.size(), "one dy per dx");
   const std::vector<int> dy(dys.begin(), dys.end()), dx(dxs.begin(), dxs.end());
+  float* s_ptr = nullptr;
+  if (s.numel() > 0) {
+    check_cuda_contig(s, "s");
+    TORCH_CHECK(s.sizes() == cost.sizes() && s.scalar_type() == at::kFloat,
+                "s must be float32 of cost's shape");
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(s.data_ptr()) % 16 == 0, "s must be 16-byte aligned");
+    s_ptr = s.data_ptr<float>();
+  }
+  int64_t carried = 0;
+  for (const int v : dy) carried += v != 0;
+  const float* in_ptr = nullptr;
+  float* out_ptr = nullptr;
+  for (const at::Tensor* t : std::initializer_list<const at::Tensor*>{&carry_in, &carry_out}) {
+    if (t->numel() == 0) continue;
+    check_cuda_contig(*t, "carry");
+    TORCH_CHECK(t->scalar_type() == at::kFloat && t->dim() == 3 && t->size(0) == carried &&
+                    t->size(1) == cost.size(1) && t->size(2) == cost.size(2),
+                "carries must be float32 (", carried, ", W, D)");
+  }
+  if (carry_in.numel() > 0) in_ptr = carry_in.data_ptr<float>();
+  if (carry_out.numel() > 0) out_ptr = carry_out.data_ptr<float>();
   const c10::cuda::CUDAGuard guard(cost.device());
-  sgbm_aggregate_launch(cost.data_ptr(), bf16, s.data_ptr<float>(), (int)cost.size(0),
-                        (int)cost.size(1), (int)cost.size(2), (int)dy.size(), dy.data(),
-                        dx.data(), (float)p1, (float)p2, at::cuda::getCurrentCUDAStream());
+  sgbm_aggregate_launch(cost.data_ptr(), bf16, s_ptr, (int)cost.size(0), (int)cost.size(1),
+                        (int)cost.size(2), (int)dy.size(), dy.data(), dx.data(), (float)p1,
+                        (float)p2, in_ptr, out_ptr, at::cuda::getCurrentCUDAStream());
 }
 
 std::tuple<int64_t, int64_t> plan(int64_t k, int64_t m) {
@@ -100,7 +121,8 @@ void ancestor_sums(const at::Tensor& v, const at::Tensor& src, const at::Tensor&
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("sgbm_aggregate", &sgbm_aggregate, "K1: S += sum of Lr over the given directions");
+  m.def("sgbm_aggregate", &sgbm_aggregate,
+        "K1 / K1c: S += sum of Lr over the given directions, carries in and out");
   m.def("seg_scan_plan", &plan, "K2: (tile ids, workspace words) of a (K, M) call");
   m.def("seg_scan", &seg_scan, "K2: segmented inclusive prefix sum along rows");
   m.def("ancestor_sums", &ancestor_sums, "K2 with the Euler ancestor-sum gathers fused");

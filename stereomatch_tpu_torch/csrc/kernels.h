@@ -8,12 +8,18 @@
 
 // K1 (sgbm_aggregate.cu): S += sum over the ndirs directions of Lr, one
 // launch. cost (h, w, d) float32 or bfloat16, 16-byte aligned; s (h, w, d)
-// float32, zero-filled by the caller, 16-byte aligned; both contiguous;
-// direction k is (dys[k], dxs[k]) = pixel - predecessor, each in {-1, 0, 1};
-// 1 <= ndirs <= 8; d a multiple of 16, at most 256.
+// float32, zero-filled by the caller, 16-byte aligned, or null to skip S;
+// both contiguous; direction k is (dys[k], dxs[k]) = pixel - predecessor,
+// each in {-1, 0, 1}; 1 <= ndirs <= 8; d a multiple of 16, at most 256.
+// K1c, its carry entry: carry_in and carry_out, each null or (c, w, d)
+// float32 contiguous, not overlapping, with c the number of directions with
+// dy != 0 and slice j the j-th of them in the caller's order. A walk of
+// such a direction starts from carry_in's state at column x - dx (zero
+// outside the image) and stores its Lr on the last row it meets in
+// carry_out.
 void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, int w, int d,
                            int ndirs, const int* dys, const int* dxs, float p1, float p2,
-                           cudaStream_t stream);
+                           const float* carry_in, float* carry_out, cudaStream_t stream);
 
 // K2 (seg_scan.cu): inclusive segmented prefix sum of each row of x (k, m)
 // float32, segments restarting where reset (m,) is nonzero, in 256-element

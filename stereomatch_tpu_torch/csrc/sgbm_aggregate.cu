@@ -42,8 +42,22 @@
 //    compile time. S is never loaded; the wrapper's zero fill is its only
 //    other write.
 //
+// 4. The carry entry (K1c) replaces sgbm_pallas.py::_row_chunk_call /
+//    _row_kernel_carry (:122 / :89), the row DP seeded from and drained to
+//    an explicit (ndir, W, D) carry, which the band-streamed SGBM
+//    (ops/sgbm.py::sgbm_disparity_banded) hands from band to band. A walk
+//    of a vertical or diagonal direction takes its state before its first
+//    step from carry_in, at the predecessor's column x - dx of the band's
+//    first row (zero where that column leaves the image, as the JAX
+//    package's _shift_carry); a walk that wraps round still starts its new
+//    line at zero. At its last step, on the band's last row, it stores its
+//    Lr into carry_out. That is one extra load a walk and one extra store,
+//    outside the DP's chain. A null S skips the reductions (an upward sweep
+//    that only records its carry). Horizontal directions take no carry; with
+//    no carry and an S the launch is K1 as before.
+//
 // The reductions land in any order. Each Lr is computed exactly as the twin
-// (ops/sgbm.py::aggregate_8path) computes it, and the twin sums S one
+// (ops/sgbm.py::aggregate_paths) computes it, and the twin sums S one
 // direction after another; so the two agree bit for bit whenever every
 // partial sum is exact in float32: integer-valued C, P1 and P2 with S below
 // 2^24, as on the SGBM cost path (ops/sgbm.py). Otherwise they agree to
@@ -71,11 +85,14 @@ constexpr unsigned kFull = 0xffffffffu;
 #endif
 
 // The directions of one call and the blocks each one owns:
-// blocks [first_block[k], first_block[k + 1]) take the walks of (dy[k], dx[k]).
+// blocks [first_block[k], first_block[k + 1]) take the walks of (dy[k], dx[k]),
+// whose carry (if the call has one) is slice carry_slot[k] of carry_in and
+// carry_out.
 struct Directions {
   int n;
   int dy[kMaxDirections];
   int dx[kMaxDirections];
+  int carry_slot[kMaxDirections];
   int first_block[kMaxDirections + 1];
 };
 
@@ -168,18 +185,20 @@ __device__ __forceinline__ bool advance(int& y, int& x, int w, int dy, int dx) {
 template <typename T, int VPT, int RING>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 sgbm_aggregate_kernel(const T* __restrict__ cost, float* __restrict__ s, int h, int w, int d,
-                      Directions dirs, float p1, float p2) {
+                      Directions dirs, float p1, float p2, const float* __restrict__ carry_in,
+                      float* __restrict__ carry_out) {
   static_assert(RING >= 4 && (RING & (RING - 1)) == 0, "the ring is a power of 2, >= 4 steps");
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int block = static_cast<int>(blockIdx.x);
-  int dy = dirs.dy[0], dx = dirs.dx[0], first_block = 0;
+  int dy = dirs.dy[0], dx = dirs.dx[0], slot = dirs.carry_slot[0], first_block = 0;
 #pragma unroll
   for (int k = 1; k < kMaxDirections; ++k) {  // first_block rises with k
     if (k < dirs.n && block >= dirs.first_block[k]) {
       dy = dirs.dy[k];
       dx = dirs.dx[k];
+      slot = dirs.carry_slot[k];
       first_block = dirs.first_block[k];
     }
   }
@@ -210,6 +229,15 @@ sgbm_aggregate_kernel(const T* __restrict__ cost, float* __restrict__ s, int h, 
   float lr[VPT];
 #pragma unroll
   for (int j = 0; j < VPT; ++j) lr[j] = d0 + j < d ? 0.f : kBig;
+  // the carried state before the first step: the predecessor's Lr on the
+  // row above the band (below it for an upward walk), at column x - dx
+  if (carry_in != nullptr && dy != 0 && x - dx >= 0 && x - dx < w) {
+    const float* src = carry_in + (static_cast<long long>(slot) * w + (x - dx)) * d + d0;
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      if (d0 + j < d) lr[j] = src[j];
+    }
+  }
 
   for (int i = 0; i < len; ++i) {
     // step i has landed (at most RING - 2 younger groups pending); the
@@ -247,7 +275,14 @@ sgbm_aggregate_kernel(const T* __restrict__ cost, float* __restrict__ s, int h, 
         nl[j] = kBig;
       }
     }
-    accumulate<VPT>(s + (static_cast<long long>(y) * w + x) * d + d0, nl, d0, d);
+    if (s != nullptr) accumulate<VPT>(s + (static_cast<long long>(y) * w + x) * d + d0, nl, d0, d);
+    if (carry_out != nullptr && dy != 0 && i == len - 1) {  // the band's last row
+      float* dst = carry_out + (static_cast<long long>(slot) * w + x) * d + d0;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        if (d0 + j < d) dst[j] = nl[j];
+      }
+    }
     const bool new_line = advance(y, x, w, dy, dx);
 #pragma unroll
     for (int j = 0; j < VPT; ++j) lr[j] = new_line ? (d0 + j < d ? 0.f : kBig) : nl[j];
@@ -255,24 +290,34 @@ sgbm_aggregate_kernel(const T* __restrict__ cost, float* __restrict__ s, int h, 
   cp_async_wait<0>();
 }
 
+// The launch's arguments past the template's.
+struct Args {
+  const void* cost;
+  float* s;
+  int h, w, d;
+  Directions dirs;
+  float p1, p2;
+  const float* carry_in;
+  float* carry_out;
+};
+
 template <typename T, int VPT>
-void launch(const void* cost, float* s, int h, int w, int d, const Directions& dirs, float p1,
-            float p2, cudaStream_t stream) {
+void launch(const Args& a, cudaStream_t stream) {
   constexpr int kRing = sizeof(T) == 2 ? 8 : 4;  // 256 B (bf16) or 512 B (f32) steps at D=128
-  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * kRing * d * sizeof(T);
+  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * kRing * a.d * sizeof(T);
   sgbm_aggregate_kernel<T, VPT, kRing>
-      <<<dirs.first_block[dirs.n], kWarpsPerBlock * 32, smem, stream>>>(
-          static_cast<const T*>(cost), s, h, w, d, dirs, p1, p2);
+      <<<a.dirs.first_block[a.dirs.n], kWarpsPerBlock * 32, smem, stream>>>(
+          static_cast<const T*>(a.cost), a.s, a.h, a.w, a.d, a.dirs, a.p1, a.p2, a.carry_in,
+          a.carry_out);
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 template <int VPT>
-void launch_vpt(const void* cost, bool bf16, float* s, int h, int w, int d,
-                const Directions& dirs, float p1, float p2, cudaStream_t stream) {
+void launch_vpt(const Args& a, bool bf16, cudaStream_t stream) {
   if (bf16) {
-    launch<__nv_bfloat16, VPT>(cost, s, h, w, d, dirs, p1, p2, stream);
+    launch<__nv_bfloat16, VPT>(a, stream);
   } else {
-    launch<float, VPT>(cost, s, h, w, d, dirs, p1, p2, stream);
+    launch<float, VPT>(a, stream);
   }
 }
 
@@ -280,7 +325,7 @@ void launch_vpt(const void* cost, bool bf16, float* s, int h, int w, int d,
 
 void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, int w, int d,
                            int ndirs, const int* dys, const int* dxs, float p1, float p2,
-                           cudaStream_t stream) {
+                           const float* carry_in, float* carry_out, cudaStream_t stream) {
   TORCH_CHECK(ndirs >= 1 && ndirs <= kMaxDirections, "sgbm_aggregate_launch: 1 to ",
               kMaxDirections, " directions, got ", ndirs);
   TORCH_CHECK(d > 0 && d <= 256 && d % 16 == 0,
@@ -291,8 +336,13 @@ void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, in
                     (dys[k] != 0 || dxs[k] != 0),
                 "sgbm_aggregate_launch: bad direction (", dys[k], ", ", dxs[k], ")");
   }
-  Directions dirs{};
+  Args a{cost, s, h, w, d, Directions{}, p1, p2, carry_in, carry_out};
+  Directions& dirs = a.dirs;
   dirs.n = ndirs;
+  // a carried direction's slice of the carries: its rank among the call's
+  // vertical and diagonal directions, in the caller's order
+  int carry_slot[kMaxDirections];
+  for (int k = 0, c = 0; k < ndirs; ++k) carry_slot[k] = dys[k] != 0 ? c++ : -1;
   int blocks = 0, slot = 0;
   // the downward directions first, then the upward ones, then the
   // horizontal ones, so that the walks that meet the same rows together
@@ -302,6 +352,7 @@ void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, in
       if (dys[k] != sweep) continue;
       dirs.dy[slot] = dys[k];
       dirs.dx[slot] = dxs[k];
+      dirs.carry_slot[slot] = carry_slot[k];
       dirs.first_block[slot] = blocks;
       blocks += (num_walks(h, w, dys[k]) + kWarpsPerBlock - 1) / kWarpsPerBlock;
       ++slot;
@@ -309,13 +360,13 @@ void sgbm_aggregate_launch(const void* cost, bool cost_bf16, float* s, int h, in
   }
   dirs.first_block[slot] = blocks;
   switch ((d + 31) / 32) {
-    case 1: launch_vpt<1>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    case 2: launch_vpt<2>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    case 3: launch_vpt<3>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    case 4: launch_vpt<4>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    case 5: launch_vpt<5>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    case 6: launch_vpt<6>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    case 7: launch_vpt<7>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
-    default: launch_vpt<8>(cost, cost_bf16, s, h, w, d, dirs, p1, p2, stream); break;
+    case 1: launch_vpt<1>(a, cost_bf16, stream); break;
+    case 2: launch_vpt<2>(a, cost_bf16, stream); break;
+    case 3: launch_vpt<3>(a, cost_bf16, stream); break;
+    case 4: launch_vpt<4>(a, cost_bf16, stream); break;
+    case 5: launch_vpt<5>(a, cost_bf16, stream); break;
+    case 6: launch_vpt<6>(a, cost_bf16, stream); break;
+    case 7: launch_vpt<7>(a, cost_bf16, stream); break;
+    default: launch_vpt<8>(a, cost_bf16, stream); break;
   }
 }

@@ -1,15 +1,23 @@
-"""Coupled PatchMatch <-> Huber-ROF alternating engine (port of
-`stereomatch_tpu/models/coupled.py::coupled_patchmatch_stereo`; its
-`coupled_wta_stereo` needs `ops/tgv.py` and is not ported yet, ROADMAP.md).
+"""Coupled data <-> variational alternating engines (port of
+`stereomatch_tpu/models/coupled.py`).
 
-The reference scaffolds this alternation inside `PatchMatchStereoNL2TGV`
-but never reaches it (goto FREE_RESOURCE at src/PatchMatchStereoGPU.cu:7328
-skips :7331-7727). Each outer round runs `smooth_iters` Huber-ROF
-primal-dual steps smoothing the (d, nx, ny) fields toward the current
-planes (huberROFSmooth, .cu:3903-4073), then one Jacobi PatchMatch round
-over the hybrid cost-volume window cost with the coupling to those fields
-(stereoMatching_huber, .cu:3273-3581). theta ramps up so the data and the
-smoothed fields converge together.
+The reference scaffolds both alternations inside `PatchMatchStereoNL2TGV`
+but never reaches them (goto FREE_RESOURCE at src/PatchMatchStereoGPU.cu:7328
+skips :7331-7727):
+
+  1. `coupled_patchmatch_stereo`: each outer round runs `smooth_iters`
+     Huber-ROF primal-dual steps smoothing the (d, nx, ny) fields toward
+     the current planes (huberROFSmooth, .cu:3903-4073), then one Jacobi
+     PatchMatch round over the hybrid cost-volume window cost with the
+     coupling to those fields (stereoMatching_huber, .cu:3273-3581). theta
+     ramps up so the data and the smoothed fields converge together.
+  2. `coupled_wta_stereo`, the non-window branch (.cu:7473-7476): TGV-2
+     smoothing of u with the augmented-Lagrangian coupling (AL_TGV_*,
+     .cu:4491-4663), then the coupled WTA over the volume, lambda_d C(d) +
+     L (u - d) + (u - d)^2 / (2 theta) (MCCNN_ALTV_CostVolumeWTA,
+     .cu:4748-4803), the multiplier update L += (u - a) theta_inv / 2
+     (.cu:4643-4655) and theta_inv growing by 1 / (1 - beta i) a round
+     (.cu:7532).
 """
 
 from __future__ import annotations
@@ -23,10 +31,11 @@ from .. import random as trandom
 from ..config import CoupledConfig
 from ..ops.coupled import coupled_plane_cost, huber_rof_field_step, init_fields
 from ..ops.patchmatch import PlaneState, _gray, _nz, _refine_ladder, _where_planes
-from ..ops.select import wta_disparity
+from ..ops.select import wta_coupled, wta_disparity
+from ..ops.tgv import TGVParams, diffusion_tensor, tgv_dual_primal_step
 from ..ops.variational import edge_weight
 
-__all__ = ["coupled_patchmatch_stereo", "CoupledOutput"]
+__all__ = ["coupled_patchmatch_stereo", "coupled_wta_stereo", "CoupledOutput"]
 
 
 class CoupledOutput(NamedTuple):
@@ -121,3 +130,61 @@ def coupled_patchmatch_stereo(
                                     base_vol, cfg, sign, theta_d, theta_n)
     return CoupledOutput(planes.d, torch.clamp(fields.vd, 0.0, 1.0) * float(cfg.max_disp),
                          planes)
+
+
+def _theta_inv_schedule(theta_inv0: float, beta: float, n: int) -> list[float]:
+    """theta_inv of each of n rounds, in float32 as XLA computes the JAX
+    package's carried `theta_inv / max(1 - beta * i, 0.05)`: it contracts
+    1 - beta * i into one fused multiply-add (the product of a float32 and
+    a small integer and its difference from 1 are exact in float64, so
+    rounding that once to float32 is the FMA's result), then divides
+    correctly rounded."""
+    f32 = np.float32
+    out, th = [], f32(theta_inv0)
+    with np.errstate(over="ignore"):  # a long schedule overflows to inf, as in float32
+        for i in range(n):
+            out.append(float(th))
+            den = max(f32(1.0 - float(f32(beta)) * i), f32(0.05))
+            th = f32(th / den)
+    return out
+
+
+def coupled_wta_stereo(
+    base_vol: torch.Tensor,  # (H, W, D)
+    guide_gray: torch.Tensor,  # (H, W) [0, 255]
+    cfg: CoupledConfig = CoupledConfig(),
+    tgv_params: TGVParams = TGVParams(),
+    tgv: bool = True,
+    device: torch.device | str = "cuda",
+) -> CoupledOutput:
+    """AL-TGV <-> coupled-WTA alternation (the reference loop's live
+    non-window branch, .cu:7405-7534) on `device`: from the volume's WTA,
+    cfg.outer_iterations rounds of cfg.smooth_iters TGV steps of u, the
+    coupled WTA re-selection of a, the multiplier update and theta's
+    annealing. All fields live in [0, 1] (the reference normalises by Dmax,
+    .cu:6941-6952); returns (a, u) in pixels, no planes."""
+    base_vol = torch.as_tensor(base_vol).to(device)
+    guide_gray = torch.as_tensor(guide_gray).to(device)
+    max_d = float(base_vol.shape[-1] - 1)
+    g = diffusion_tensor(guide_gray * (1.0 / 255.0), None, tgv_params.tensor_a,
+                         tgv_params.tensor_b)
+    g00, g01, g11 = g[..., 0], g[..., 1], g[..., 3]
+    planes = (g00, g01, g01, g11)  # the JAX engine uses g01 for both off-diagonals
+
+    a = wta_disparity(base_vol, 0) / max_d
+    z = torch.zeros_like(a)
+    u, lagr, v, p, q = a, z, (z, z), (z, z), (z, z, z, z)
+    # 0-dim float32 tensors filled on the card (a host copy would sync)
+    full = lambda x: torch.full((), x, dtype=torch.float32, device=device)  # noqa: E731
+    for th in _theta_inv_schedule(cfg.theta_inv0, cfg.beta_anneal, cfg.outer_iterations):
+        theta_inv = full(th)
+        for _ in range(cfg.smooth_iters):
+            u, v, p, q = tgv_dual_primal_step(u, v, p, q, lagr, a, planes, theta_inv,
+                                              tgv_params, tgv)
+        # u and L live in [0, 1] units while wta_coupled's d axis is in
+        # pixels: L scales by 1/max_d and theta_inv by 1/max_d^2
+        a = wta_coupled(base_vol, u * max_d, lagr / max_d, cfg.lambda_d,
+                        theta_inv / (max_d * max_d), 0) / max_d
+        a = torch.clamp(a, 0.0, 1.0)
+        lagr = lagr + (u - a) * 0.5 * theta_inv
+    return CoupledOutput(a * max_d, u * max_d, None)

@@ -1,7 +1,8 @@
-"""3DMST model entries and helpers (port of `stereomatch_tpu/models/mst.py`
-but its coarse-to-fine entry): the flat random-init frame on the host or
-the device forest (`mst_stereo`), its device-forest twin
-(`mst_stereo_fused`) and the seeded frame the SGBM compositions run.
+"""3DMST model entries and helpers (port of `stereomatch_tpu/models/mst.py`):
+the flat random-init frame on the host or the device forest
+(`mst_stereo`), its device-forest twin (`mst_stereo_fused`), the
+coarse-to-fine frame (`mst_stereo_c2f`) and the seeded frame the SGBM
+compositions run.
 
 Per view: median prefilter, L1 colour edge weights and the segment
 forest, MST_PMS label optimization, the disparity map; then the
@@ -30,8 +31,8 @@ from ..ops.mst import (
 )
 from ..ops.postprocess import lr_consistency
 
-__all__ = ["MSTOutput", "build_view_forest", "mst_stereo", "mst_stereo_fused",
-           "mst_stereo_seeded"]
+__all__ = ["MSTOutput", "build_view_forest", "mst_stereo", "mst_stereo_c2f",
+           "mst_stereo_fused", "mst_stereo_seeded"]
 
 
 class MSTOutput(NamedTuple):
@@ -53,13 +54,31 @@ def _fused_capacities(h: int, w: int, cfg: MSTConfig) -> tuple[int, int]:
 
 
 def _apply_smoothness(disp: torch.Tensor, bgr, cfg: MSTConfig) -> torch.Tensor:
-    """Smoothness prior after label optimization; only "NONE" is ported."""
+    """The smoothness prior selected by the reference's string surface
+    ("NL2TGV"/"NLTV"/"2TGV"/"TV"/"NONE", src/PatchMatchStereoGPU.cu:6819;
+    its refinement loop is dead at .cu:7328, these are the live
+    equivalents), run for cfg.smoothness_iters iterations on the
+    [0, 1]-normalised disparity like the reference's u fields
+    (.cu:6941-6952), on disp's device."""
     prior = cfg.smoothness_prior.upper()
     if prior in ("NONE", ""):
         return disp
-    raise NotImplementedError(
-        f"smoothness prior {prior!r} is not ported yet (ROADMAP.md queue 1: priors)"
-    )
+    span = float(cfg.max_disp - 1)
+    u0 = torch.clamp(disp / span, 0.0, 1.0)
+    bgr = torch.as_tensor(bgr, dtype=torch.float32).to(disp.device)
+    if prior in ("2TGV", "TV"):
+        from ..ops.tgv import TGVParams, tgv2_refine
+
+        gray = (0.114 * bgr[..., 0] + 0.587 * bgr[..., 1] + 0.299 * bgr[..., 2]) * (1.0 / 255.0)
+        u = tgv2_refine(u0, gray, TGVParams(iterations=cfg.smoothness_iters),
+                        tgv=(prior == "2TGV"))
+    elif prior in ("NL2TGV", "NLTV"):
+        from ..ops.nltgv import NL2TGVParams, nl2tgv_refine
+
+        u = nl2tgv_refine(u0, bgr, NL2TGVParams(iterations=cfg.smoothness_iters))
+    else:
+        raise ValueError(f"smoothness_prior must be NL2TGV/NLTV/2TGV/TV/NONE, got {prior!r}")
+    return u * span
 
 
 def _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg: MSTConfig) -> MSTOutput:
@@ -150,6 +169,93 @@ def mst_stereo_fused(
     return mst_stereo(left_bgr, right_bgr, left_vol, right_vol,
                       dataclasses.replace(cfg, forest_backend="device"), seed, max_neighbors,
                       device)
+
+
+def _c2f_coarse(key, bgr_c, vol_c, cfg_c: MSTConfig, max_neighbors: int, device):
+    """Random-init MST_PMS at the coarse scale (cfg_c.iterations), its
+    node-order labels scattered to (hc, wc) pixel maps (pixel_of_node is a
+    permutation, so the scatter writes every pixel once). Returns the
+    (a, b, c) maps."""
+    fa_c = build_view_forest(bgr_c, cfg_c, device)
+    labels = mst_pms_optimize(key, vol_c, fa_c, cfg_c, max_neighbors=max_neighbors)[:3]
+    hc, wc = bgr_c.shape[:2]
+    return tuple(torch.zeros(hc * wc, device=device).index_put_((fa_c.pixel_of_node,), v)
+                 .reshape(hc, wc) for v in labels)
+
+
+def _c2f_fine(key, bgr, vol, cfg: MSTConfig, k: int, coarse_maps, fine_iters: int,
+              max_neighbors: int, device) -> torch.Tensor:
+    """The full-scale stage: each pixel seeded with its coarse cell's plane
+    rescaled as (a, b, k c) (d_f(x, y) = k d_c(x/k, y/k)) at the seed's
+    true aggregated cost, then `fine_iters` iterations. Returns the
+    disparity map in pixels."""
+    a_img, b_img, c_img = coarse_maps
+    hc, wc = a_img.shape
+    w = vol.shape[1]
+    fa = build_view_forest(bgr, cfg, device)
+    pix = fa.pixel_of_node
+    ys = torch.clamp((pix // w) // k, 0, hc - 1)
+    xs = torch.clamp((pix % w) // k, 0, wc - 1)
+    a0, b0 = a_img[ys, xs], b_img[ys, xs]
+    c0 = c_img[ys, xs] * float(k)
+    mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
+    a, b, c, _ = mst_pms_optimize(key, vol, fa, cfg, max_neighbors=max_neighbors,
+                                  iterations=fine_iters, init_state=(a0, b0, c0, mc0))
+    return labels_to_disparity(a, b, c, fa, cfg.max_disp) * (cfg.max_disp - 1.0)
+
+
+def _c2f_view(key, bgr, vol, cfg: MSTConfig, k: int, coarse_iters: int, fine_iters: int,
+              max_neighbors: int, device) -> torch.Tensor:
+    """Coarse-to-fine label optimization for one view: `coarse_iters`
+    random-init iterations on the volume and image strided by k (the
+    disparity axis too, dc = ceil(D / k) slices), then the full-scale stage
+    from the upsampled labels. The key splits into the coarse and the fine
+    stage's, as in the JAX package."""
+    vol = torch.as_tensor(vol).to(device)
+    if cfg.volume_dtype != "float32":
+        vol = vol.to(getattr(torch, cfg.volume_dtype))  # one cast shared by both scales
+    d = vol.shape[2]
+    dc = max(2, -(-d // k))
+    cfg_c = dataclasses.replace(cfg, max_disp=dc, iterations=coarse_iters)
+    bgr = torch.as_tensor(bgr, dtype=torch.float32).to(device)
+    kc, kf = trandom.split(key)
+    coarse = _c2f_coarse(kc, bgr[::k, ::k], vol[::k, ::k, ::k][:, :, :dc], cfg_c, max_neighbors,
+                         device)
+    return _c2f_fine(kf, bgr, vol, cfg, k, coarse, fine_iters, max_neighbors, device)
+
+
+def mst_stereo_c2f(
+    left_bgr,
+    right_bgr,
+    left_vol,
+    right_vol,
+    cfg: MSTConfig = MSTConfig(),
+    seed: int = 0,
+    k: int = 2,
+    coarse_iterations: int | None = None,
+    fine_iterations: int | None = None,
+    max_neighbors: int = 8,
+    device: torch.device | str = "cuda",
+) -> MSTOutput:
+    """Coarse-to-fine 3DMST: per view, `coarse_iterations` (default
+    cfg.iterations) random-init iterations at 1/k scale on a volume k^3
+    times smaller, the plane labels upsampled, and `fine_iterations`
+    (default cfg.iterations // 4) at full scale; then the smoothness prior
+    and the LR check of the left map, as mst_stereo. Below 2k disparities
+    the coarse volume is too thin, and the flat mst_stereo runs both
+    phases' iterations instead. Same RNG stream as the JAX function."""
+    if cfg.max_disp < 2 * k:
+        ci0 = coarse_iterations or cfg.iterations
+        fi0 = fine_iterations or max(1, cfg.iterations // 4)
+        return mst_stereo(left_bgr, right_bgr, left_vol, right_vol,
+                          dataclasses.replace(cfg, iterations=ci0 + fi0), seed, max_neighbors,
+                          device)
+    ci = cfg.iterations if coarse_iterations is None else coarse_iterations
+    fi = max(1, cfg.iterations // 4) if fine_iterations is None else fine_iterations
+    kl, kr = trandom.split(trandom.PRNGKey(seed, device))
+    disp_l = _c2f_view(kl, left_bgr, left_vol, cfg, k, ci, fi, max_neighbors, device)
+    disp_r = _c2f_view(kr, right_bgr, right_vol, cfg, k, ci, fi, max_neighbors, device)
+    return _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg)
 
 
 def mst_stereo_seeded(

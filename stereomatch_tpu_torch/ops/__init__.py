@@ -1,7 +1,8 @@
 """Tensor ops of the port: filters, matching costs (census, AD+gradient,
 windowed), disparity selection, post-processing (LR checks, fill), the
-variational denoise, speckle filtering, SGBM and BM, forest construction
-and the 3DMST tree filter, PatchMatch and its coupled variant
+variational denoise, speckle filtering, SGBM (whole-frame and banded) and
+BM, the TGV and NL2TGV smoothness priors (`tgv`, `nltgv`), forest
+construction and the 3DMST tree filter, PatchMatch and its coupled variant
 (`patchmatch`, `coupled`), plus the wrappers of the hand-written CUDA
 kernels (`sgbm_cuda`, `mst_scan_cuda`)."""
 
@@ -37,8 +38,10 @@ from .variational import (  # noqa: F401
     variational_disparity_denoise,
 )
 from .speckle import connected_components, filter_speckles  # noqa: F401
-from .sgbm import sgbm_disparity  # noqa: F401
+from .sgbm import sgbm_disparity, sgbm_disparity_banded  # noqa: F401
 from .bm import bm_disparity  # noqa: F401
+from .tgv import diffusion_tensor, tgv2_refine  # noqa: F401
+from .nltgv import nl2tgv_refine  # noqa: F401
 from .mst import (  # noqa: F401
     aggregation_norm_inv,
     forest_arrays,

@@ -8,9 +8,11 @@ with q = p - r and zero state where q leaves the image. `aggregate_8path`
 below is the plain PyTorch twin of the CUDA kernel K1
 (`ops/sgbm_cuda.py`, `csrc/sgbm_aggregate.cu`): one pass per direction,
 S accumulated in float32 in the same per-pixel order as the kernel, so
-the two agree bit for bit. `sgbm_disparity` aggregates through the K1
-wrapper, which launches the kernel for CUDA tensors and runs this twin for
-CPU tensors.
+the two agree bit for bit. `aggregate_paths` is the same with carries in
+and out, the twin of K1's carry entry K1c. `sgbm_disparity` aggregates
+through the K1 wrapper, `sgbm_disparity_banded` streams 128-row bands
+through K1c's; each wrapper launches its kernel for CUDA tensors and runs
+the twin for CPU tensors.
 
 Then WTA, uniqueness ratio, quadratic subpixel and the disp12 cross-check
 with its free right-view map (OpenCV's disp2).
@@ -31,8 +33,10 @@ __all__ = [
     "bt_cost_volume",
     "sgbm_cost_volume",
     "SGBM_DIRECTIONS",
+    "aggregate_paths",
     "aggregate_8path",
     "sgbm_disparity",
+    "sgbm_disparity_banded",
     "SGBMOutput",
 ]
 
@@ -133,11 +137,15 @@ def _dp_step(c: torch.Tensor, lp: torch.Tensor, p1: float, p2: float) -> torch.T
     return (c + cand) - mp
 
 
-def _direction_pass(c, s, dy: int, dx: int, p1: float, p2: float) -> None:
-    """S += Lr for one direction (in place). c, s: (H, W, D) float32."""
+def _direction_pass(c, s, dy: int, dx: int, p1: float, p2: float, lp=None):
+    """S += Lr for one direction (in place; s None skips it). c, s: (H, W, D)
+    float32. A vertical or diagonal pass starts from `lp`, the (W, D) state
+    of the row before its first (zero if None; the predecessor column x -
+    dx is read, zero where it leaves the image) and returns its state on
+    its last row; a horizontal pass returns None."""
     h, w, d = c.shape
     if dy != 0:
-        lp = c.new_zeros(w, d)
+        lp = c.new_zeros(w, d) if lp is None else lp.float()
         zero = c.new_zeros(1, d)
         for y in (range(h) if dy > 0 else range(h - 1, -1, -1)):
             if dx == 1:  # predecessor one column left; zero state at x = 0
@@ -145,12 +153,37 @@ def _direction_pass(c, s, dy: int, dx: int, p1: float, p2: float) -> None:
             elif dx == -1:
                 lp = torch.cat([lp[1:], zero], 0)
             lp = _dp_step(c[y], lp, p1, p2)
-            s[y] += lp
-    else:
-        lp = c.new_zeros(h, d)
-        for x in (range(w) if dx > 0 else range(w - 1, -1, -1)):
-            lp = _dp_step(c[:, x], lp, p1, p2)
-            s[:, x] += lp
+            if s is not None:
+                s[y] += lp
+        return lp
+    lp = c.new_zeros(h, d)
+    for x in (range(w) if dx > 0 else range(w - 1, -1, -1)):
+        lp = _dp_step(c[:, x], lp, p1, p2)
+        s[:, x] += lp
+    return None
+
+
+def aggregate_paths(cost: torch.Tensor, p1: float, p2: float, directions, carry_in=None,
+                    carry_out=None, with_s: bool = True) -> torch.Tensor | None:
+    """Plain PyTorch twin of K1 and of its carry entry K1c: S = sum over
+    `directions` ((dy, dx) pairs, in this order) of Lr, float32 state and
+    sum for f32 or bf16 costs; cost (H, W, D) -> S (H, W, D) float32, or
+    None without S (with_s=False, an upward sweep that only records its
+    carry). carry_in / carry_out: None or (c, W, D) float32, c the number of
+    directions with dy != 0, slice j the j-th of them: the state on the row
+    before the band's first (in the sweep's order) and the state on its
+    last row, written into carry_out."""
+    c = cost.float()
+    s = torch.zeros_like(c) if with_s else None
+    j = 0
+    for dy, dx in directions:
+        last = _direction_pass(c, s, dy, dx, float(p1), float(p2),
+                               None if carry_in is None or dy == 0 else carry_in[j])
+        if dy != 0:
+            if carry_out is not None:
+                carry_out[j].copy_(last)
+            j += 1
+    return s
 
 
 def aggregate_8path(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 8) -> torch.Tensor:
@@ -159,11 +192,7 @@ def aggregate_8path(cost: torch.Tensor, p1: float, p2: float, num_paths: int = 8
     cost (H, W, D) -> S (H, W, D) float32."""
     if num_paths not in SGBM_DIRECTIONS:
         raise ValueError(f"num_paths must be 4, 5 or 8, got {num_paths}")
-    c = cost.float()
-    s = torch.zeros_like(c)
-    for dy, dx in SGBM_DIRECTIONS[num_paths]:
-        _direction_pass(c, s, dy, dx, float(p1), float(p2))
-    return s
+    return aggregate_paths(cost, p1, p2, SGBM_DIRECTIONS[num_paths])
 
 
 class SGBMOutput(NamedTuple):
@@ -265,3 +294,100 @@ def _select_from_aggregated(s: torch.Tensor, cfg: SGBMConfig, margin: int, w_ful
     out = torch.cat([out.new_full((h, margin), invalid_val), out], 1)
     valid = torch.cat([valid.new_zeros((h, margin)), valid], 1)
     return out, valid, rdisp
+
+
+def _band_cost(lp: torch.Tensor, rp: torch.Tensor, b: int, band_rows: int, h: int, margin: int,
+               cfg: SGBMConfig, ctx: int = 3) -> torch.Tensor:
+    """Band b's (band_rows, W', D) cost from the edge-padded images' strip
+    of band_rows + 2 ctx rows (Sobel 1 + block radius 2): context rows
+    outside the image take the edge row's PIXEL cost (the whole image's
+    block sum replicates cost rows, not image rows), and rows past h cost
+    zero, so the padded last band is transparent to the DP (a zero state
+    through zero-cost rows stays zero). Contiguous, in cfg.cost_dtype."""
+    dev = lp.device
+    n = band_rows + 2 * ctx
+    start = b * band_rows
+    cpix = _pixel_cost(lp[start:start + n], rp[start:start + n], cfg)
+    src = torch.clamp(torch.arange(start - ctx, start - ctx + n, device=dev), 0, h - 1)
+    cpix = cpix.index_select(0, torch.clamp(src - (start - ctx), 0, n - 1))
+    c = _block_sum(cpix, cfg.block_size)
+    del cpix
+    if cfg.cost_dtype != "float32":
+        c = c.to(getattr(torch, cfg.cost_dtype))
+    c = c[ctx:ctx + band_rows, margin:]
+    inside = torch.arange(start, start + band_rows, device=dev) < h
+    return torch.where(inside[:, None, None], c, c.new_zeros(()))
+
+
+def sgbm_disparity_banded(
+    left_gray: torch.Tensor,
+    right_gray: torch.Tensor,
+    cfg: SGBMConfig = SGBMConfig(),
+    band_rows: int = 128,
+    device: torch.device | str = "cuda",
+) -> SGBMOutput:
+    """sgbm_disparity in bands of `band_rows` rows on `device`, never
+    holding the whole (H, W', D) cost or aggregated volume: meant for
+    2048x1536x256-scale frames, with memory of a few band volumes. Each
+    band's cost is recomputed from an image strip (`_band_cost`), so the
+    block sums' float32 prefixes can differ from the whole frame's by 1 ulp
+    on a non-integer cost, and a near tie may then resolve differently.
+
+    Two sweeps of K1c (`aggregate_paths_cuda`; its twin on the CPU). The
+    upward sweep, from the bottom band, records the {N, NE, NW} carry
+    entering each band from below (none for the 5-path set, one direction
+    for 4 paths; the top band's outgoing carry is never read, so its up
+    launch is skipped). The downward sweep finishes each band in one
+    launch (the downward directions from the running carry, the upward
+    ones from the recorded carry, E and W inside the band) and reduces it
+    at once with `_select_from_aggregated`. Launches: 2 nbands - 1, or
+    nbands without upward paths."""
+    from .sgbm_cuda import aggregate_paths_cuda
+
+    if cfg.num_paths not in SGBM_DIRECTIONS:
+        raise ValueError(f"num_paths must be 4, 5 or 8, got {cfg.num_paths}")
+    p1, p2 = (float(p) for p in cfg.resolved_p1p2())
+    dirs = SGBM_DIRECTIONS[cfg.num_paths]
+    ndir = 3 if cfg.num_paths in (8, 5) else 1
+    use_up = cfg.num_paths != 5  # MODE_SGBM has no upward paths
+    carried = 2 * ndir if use_up else ndir
+    left_gray = torch.as_tensor(left_gray).to(device).float()
+    right_gray = torch.as_tensor(right_gray).to(device).float()
+    h, w_full = left_gray.shape
+    nd = cfg.num_disp
+    margin = min(cfg.min_disp + nd, w_full)
+    w = w_full - margin
+    nbands = -(-h // band_rows)
+    ctx = 3
+    rows = torch.clamp(torch.arange(-ctx, nbands * band_rows + ctx, device=left_gray.device),
+                       0, h - 1)
+    lp, rp = left_gray.index_select(0, rows), right_gray.index_select(0, rows)
+
+    def cost(b):
+        return _band_cost(lp, rp, b, band_rows, h, margin, cfg, ctx)
+
+    zero = torch.zeros((ndir, w, nd), dtype=torch.float32, device=left_gray.device)
+    up_in = [zero] * nbands  # up_in[b]: the upward carry entering band b from below
+    if use_up:
+        for b in range(nbands - 1, 0, -1):
+            up_in[b - 1] = torch.empty_like(zero)
+            aggregate_paths_cuda(cost(b), p1, p2, dirs[ndir:2 * ndir], up_in[b], up_in[b - 1],
+                                 with_s=False)
+
+    down = zero
+    outs, valids, rdisps = [], [], []
+    for b in range(nbands):
+        carry_in = torch.cat([down, up_in[b]]) if use_up else down
+        carry_out = carry_in.new_empty((carried, w, nd))
+        s = aggregate_paths_cuda(cost(b), p1, p2, dirs, carry_in, carry_out)
+        down = carry_out[:ndir]
+        up_in[b] = None  # read once
+        out_b, valid_b, rdisp_b = _select_from_aggregated(s, cfg, margin, w_full)
+        del s
+        outs.append(out_b)
+        valids.append(valid_b)
+        rdisps.append(rdisp_b)
+    out = torch.cat(outs)[:h]
+    valid = torch.cat(valids)[:h]
+    rdisp = None if rdisps[0] is None else torch.cat(rdisps)[:h]
+    return SGBMOutput(out, valid, out.new_zeros((0,)), rdisp)

@@ -14,6 +14,7 @@ from .config import (
 )
 
 __all__ = [
+    "SGBM_BAND_THRESHOLD_BYTES",
     "check_stereo_pair",
     "costvolume_pipeline",
     "census_pipeline",
@@ -107,25 +108,27 @@ def bm_pipeline(left, right, cfg: BMConfig | None = None, speckle: bool = True,
     return disp.cpu().numpy()
 
 
+# sgbm_pipeline streams the rows in bands (sgbm_disparity_banded) when the
+# float32 aggregated volume H * W * num_disp * 4 would pass this many bytes,
+# as the JAX package does: every 2048x1536 frame at 256 disparities
+SGBM_BAND_THRESHOLD_BYTES = 2 << 30
+
+
 def sgbm_pipeline(left, right, cfg: SGBMConfig = SGBMConfig(), speckle: bool = True,
                   device: torch.device | str = "cuda"):
     """8-path SGBM left-view disparity with the OpenCV parameter surface
     (ref: StereoMatching::SGBMStereo, src/StereoMatching.cpp:148-193); the
-    aggregation is kernel K1. Returns float32 disparity; invalid pixels =
-    cfg.min_disp - 1.
-
-    Above the JAX package's band threshold (an aggregated volume over
-    2 GiB in float32) its result comes from `sgbm_disparity_banded`, which
-    is not ported yet (ROADMAP.md queue 1, item 5): that raises."""
-    from .ops.sgbm import sgbm_disparity
+    aggregation is kernel K1, or above SGBM_BAND_THRESHOLD_BYTES its carry
+    entry K1c in `sgbm_disparity_banded`'s bands of 128 rows. Returns
+    float32 disparity; invalid pixels = cfg.min_disp - 1."""
+    from .ops.sgbm import sgbm_disparity, sgbm_disparity_banded
 
     check_stereo_pair(left, right)
-    h, w = np.asarray(left).shape[:2]
-    if h * w * cfg.num_disp * 4 > 2 << 30:
-        raise NotImplementedError(
-            f"sgbm_pipeline at {h}x{w}x{cfg.num_disp}: the JAX package streams this size "
-            "through sgbm_disparity_banded, which is not ported yet (ROADMAP.md queue 1, item 5)")
-    disp = sgbm_disparity(_gray255(left, device), _gray255(right, device), cfg).disparity
+    gl, gr = _gray255(left, device), _gray255(right, device)
+    if gl.shape[0] * gl.shape[1] * cfg.num_disp * 4 > SGBM_BAND_THRESHOLD_BYTES:
+        disp = sgbm_disparity_banded(gl, gr, cfg, device=device).disparity
+    else:
+        disp = sgbm_disparity(gl, gr, cfg).disparity
     if speckle and cfg.speckle_window_size > 0:
         disp = _filter_speckles(disp, cfg)
     return disp.cpu().numpy()

@@ -85,14 +85,32 @@ def test_sgbm_pipeline(rgb):
         assert (got >= 0).mean() > 0.5
 
 
-def test_sgbm_pipeline_raises_above_the_band_threshold():
-    """The JAX package bands an aggregated volume over 2 GiB
-    (sgbm_disparity_banded, not ported): the port raises there instead of
-    running another code path. A 1449x1449 pair at 256 disparities is just
-    over; a read-only broadcast view, never materialized."""
-    big = np.broadcast_to(np.zeros((1, 1, 3), np.uint8), (1449, 1449, 3))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        tpipe.sgbm_pipeline(big, big, port_cfg(SGBMConfig(num_disp=256)), device="cpu")
+def test_sgbm_pipeline_raises_above_the_band_threshold(monkeypatch):
+    """Above the JAX package's 2 GiB band threshold the pipeline used to
+    raise (sgbm_disparity_banded was not ported); it now takes the band
+    branch there and the whole-frame path below, as the JAX pipeline does.
+    A 1449x1449 pair at 256 disparities is just over, 1448x1448 just
+    under: read-only broadcast views, with both SGBM functions stubbed so
+    nothing of that size is computed."""
+    from stereomatch_tpu_torch.ops import sgbm as tsgbm
+
+    calls = []
+
+    def stub(name):
+        def run(left, right, cfg, *a, **k):
+            calls.append((name, tuple(left.shape)))
+            z = torch.zeros(tuple(left.shape))
+            return tsgbm.SGBMOutput(z, z.bool(), z.new_zeros((0,)), None)
+        return run
+
+    monkeypatch.setattr(tsgbm, "sgbm_disparity_banded", stub("banded"))
+    monkeypatch.setattr(tsgbm, "sgbm_disparity", stub("whole"))
+    for n in (1449, 1448):
+        big = np.broadcast_to(np.zeros((1, 1, 3), np.uint8), (n, n, 3))
+        out = tpipe.sgbm_pipeline(big, big, port_cfg(SGBMConfig(num_disp=256)), speckle=False,
+                                  device="cpu")
+        assert out.shape == (n, n)
+    assert calls == [("banded", (1449, 1449)), ("whole", (1448, 1448))]
     assert 1448 * 1448 * 256 * 4 <= 2 << 30 < 1449 * 1449 * 256 * 4
 
 

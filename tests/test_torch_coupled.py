@@ -1,8 +1,10 @@
-"""The port's coupled PatchMatch <-> Huber-ROF engine (ops/coupled.py,
-models/coupled.py::coupled_patchmatch_stereo) against the JAX package, on
-the CPU, at 40x56 with 13 disparity slices (max_disp 12), window 15 and
-tap stride 3, on a noisy slanted cost volume (tests/test_coupled.py's
-construction) and a rendered scene's colours.
+"""The port's coupled engines against the JAX package, on the CPU: the
+coupled PatchMatch <-> Huber-ROF engine (ops/coupled.py,
+models/coupled.py::coupled_patchmatch_stereo) at 40x56 with 13 disparity
+slices (max_disp 12), window 15 and tap stride 3, on a noisy slanted cost
+volume (tests/test_coupled.py's construction) and a rendered scene's
+colours; and the AL-TGV <-> coupled-WTA engine (coupled_wta_stereo) on
+tests/test_coupled.py's own problem (48x64, 24 slices, 40 rounds).
 
 As for PatchMatch (tests/test_torch_patchmatch.py), XLA contracts some
 multiply-adds into FMAs and torch does not: the ops are held within a
@@ -13,6 +15,10 @@ within 1.3e-6 relative (held to 2e-5); 10 Huber-ROF steps within 7.2e-7
 within 1e-4 on 100% of pixels (held to 98%); the engine at 2 outer rounds:
 its smoothed field within 1e-3 px on 99.9% of pixels (at most 8.7e-3 px
 apart) and its disparities within 0.1 px on 100% (both held to 95%).
+coupled_wta_stereo at 40 rounds of 10 TGV steps: both maps within 4.7e-5
+px of JAX's on every pixel, flat and textured guide, TGV and TV (held to
+1e-3 px on >= 99% of pixels); its theta_inv schedule equals XLA's float32
+bit for bit (XLA fuses 1 - beta i into one multiply-add).
 """
 
 import jax
@@ -25,10 +31,12 @@ from stereomatch_tpu.config import CoupledConfig
 from stereomatch_tpu.models import coupled as jmodel
 from stereomatch_tpu.ops import coupled as jops
 from stereomatch_tpu.ops.patchmatch import PlaneState as JPlanes
+from stereomatch_tpu.ops.tgv import TGVParams as JTGVParams
 from stereomatch_tpu_torch import random as trandom
 from stereomatch_tpu_torch.interop import key_from_jax, plane_state_from_numpy
 from stereomatch_tpu_torch.models import coupled as tmodel
 from stereomatch_tpu_torch.ops import coupled as tops
+from stereomatch_tpu_torch.ops.tgv import TGVParams
 from stereomatch_tpu_torch.synthetic import render_scene
 from test_torch_config import port_cfg
 
@@ -160,3 +168,56 @@ def test_theta_schedule_is_xla_float32():
     assert tmodel._theta_schedule(5.0, 50.0, 10) == np.asarray(td).tolist()
     assert tmodel._theta_schedule(0.5, 5.0, 10) == np.asarray(tn).tolist()
     assert tmodel._theta_schedule(5.0, 50.0, 1) == [5.0]
+
+
+@pytest.fixture(scope="module")
+def wta_problem():
+    """tests/test_coupled.py's problem: a noisy volume whose clean minimum
+    follows d = 0.15x + 4, and a flat and a textured guide."""
+    rng = np.random.default_rng(21)
+    h, w, nd = 48, 64, 24
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    d_true = 0.15 * xs + 4.0 + np.zeros((h, 1), np.float32)
+    ds = np.arange(nd, dtype=np.float32)[None, None, :]
+    clean = np.minimum(np.abs(ds - d_true[..., None]) * 0.12, 0.5)
+    vol = (clean + rng.random((h, w, nd)).astype(np.float32) * 0.6).astype(np.float32)
+    guides = {"flat": np.full((h, w), 128.0, np.float32),
+              "textured": render_scene(0, h, w, nd).left.astype(np.float32).mean(-1)}
+    return vol, guides, d_true
+
+
+@pytest.mark.parametrize("tgv", [True, False])
+@pytest.mark.parametrize("guide", ["flat", "textured"])
+def test_coupled_wta_stereo_matches_jax(wta_problem, guide, tgv):
+    """tests/test_coupled.py's configuration (40 rounds, 10 TGV steps each,
+    lambda_s 2): the WTA field and the smoothed field within 1e-3 px on >=
+    99% of pixels; on the flat guide the engine beats raw WTA as JAX's
+    test demands."""
+    vol, guides, d_true = wta_problem
+    cfg = CoupledConfig(max_disp=vol.shape[2] - 1, outer_iterations=40, smooth_iters=10,
+                        lambda_d=1.0, theta_inv0=1.0, beta_anneal=0.01)
+    want = jmodel.coupled_wta_stereo(jnp.asarray(vol), jnp.asarray(guides[guide]), cfg,
+                                     JTGVParams(lambda_s=2.0), tgv)
+    got = tmodel.coupled_wta_stereo(_t(vol), _t(guides[guide]), port_cfg(cfg),
+                                    TGVParams(lambda_s=2.0), tgv, device="cpu")
+    assert got.planes is None and got.disparity.shape == vol.shape[:2]
+    for g, w in ((got.disparity, want.disparity), (got.smoothed, want.smoothed)):
+        assert np.mean(np.abs(g.numpy() - np.asarray(w)) <= 1e-3) >= 0.99
+    if guide == "flat" and tgv:
+        from stereomatch_tpu_torch.ops.select import wta_disparity
+
+        inner = np.s_[4:-4, 4:-4]
+        mae_wta = np.abs(wta_disparity(_t(vol), 0).numpy() - d_true)[inner].mean()
+        assert np.abs(got.disparity.numpy() - d_true)[inner].mean() < 0.6 * mae_wta
+
+
+@pytest.mark.parametrize("theta0,beta,n", [(1.0, 0.01, 200), (1.0, 0.03, 40), (0.7, 0.013, 120)])
+def test_theta_inv_schedule_is_xla_float32(theta0, beta, n):
+    """The carried theta_inv / max(1 - beta i, 0.05) as XLA evaluates the
+    JAX engine's float32 scan (a jitted scan of the same expression), bit
+    for bit, into the floor of 0.05."""
+    def outer(th, i):
+        return th / jnp.maximum(1.0 - beta * i.astype(jnp.float32), 0.05), th
+
+    _, want = jax.jit(lambda: jax.lax.scan(outer, jnp.float32(theta0), jnp.arange(n)))()
+    assert tmodel._theta_inv_schedule(theta0, beta, n) == np.asarray(want).tolist()

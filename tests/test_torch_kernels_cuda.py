@@ -10,13 +10,15 @@ atomic reductions, in any order. On integer-valued costs every partial sum
 is exact, so K1 equals its twin bit for bit; on other costs the two agree
 to float32 reassociation of the sum over directions (rtol 1e-6: two orders
 of a sum of n <= 8 non-negative terms differ by at most 2 (n - 1) 2^-24 of
-the sum). K2 agrees with its twin to rtol 1e-5 / atol 1e-4: both use the
-same 256-element blocks but sum in different orders; on integer-valued
-inputs every partial sum is exact and they agree bit for bit. K2 is one
-launch a call, whose tiles pass the open segment on by a look-back through
-a per-stream workspace that is never cleared; the tests below run it where
-the look-back goes deep (long segments), across calls and sizes that
-reuse the workspace, and with the ancestor sum's gathers fused.
+the sum). K1c, K1's carry entry, is held the same way, and its carries
+(each one direction's Lr, no sum) bit for bit on any cost. K2 agrees with
+its twin to rtol 1e-5 / atol 1e-4: both use the same 256-element blocks
+but sum in different orders; on integer-valued inputs every partial sum is
+exact and they agree bit for bit. K2 is one launch a call, whose tiles
+pass the open segment on by a look-back through a per-stream workspace
+that is never cleared; the tests below run it where the look-back goes
+deep (long segments), across calls and sizes that reuse the workspace,
+and with the ancestor sum's gathers fused.
 """
 
 import pathlib
@@ -30,8 +32,8 @@ import torch
 from stereomatch_tpu_torch.ops.mst_scan_cuda import (
     ancestor_sums, ancestor_sums_twin, lookback_counts, segmented_cumsum, segmented_cumsum_twin,
 )
-from stereomatch_tpu_torch.ops.sgbm import aggregate_8path
-from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
+from stereomatch_tpu_torch.ops.sgbm import SGBM_DIRECTIONS, aggregate_8path, aggregate_paths
+from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -101,6 +103,127 @@ def test_k1_wrapper_rejects(cuda):
     before = aggregate_8path_cuda.launches
     assert aggregate_8path_cuda(torch.zeros((0, 5, 16), device=cuda), 1.0, 2.0).shape == (0, 5, 16)
     assert aggregate_8path_cuda.launches == before  # nothing to launch
+
+
+# K1c's direction sets: a banded down-sweep of 8 paths (6 carried, E and W
+# in the same launch), of 5 paths (3 carried) and of 4 paths (2 carried),
+# and an up-sweep that only records its carry (3 carried, no S)
+K1C_SETS = {"down8": (SGBM_DIRECTIONS[8], True), "down5": (SGBM_DIRECTIONS[5], True),
+            "down4": (SGBM_DIRECTIONS[4], True), "up": (SGBM_DIRECTIONS[8][3:6], False)}
+
+
+def _k1c_case(rng, shape, dirs, integer=True):
+    """(cost, carry_in): a cost and a carry that is non-zero everywhere."""
+    carried = sum(dy != 0 for dy, _ in dirs)
+    if integer:
+        cost = rng.integers(0, 3000, shape).astype(np.float32)
+        carry = rng.integers(1, 5000, (carried,) + shape[1:]).astype(np.float32)
+    else:
+        cost = (rng.random(shape) * 3000).astype(np.float32)
+        carry = (rng.random((carried,) + shape[1:]) * 5000 + 1).astype(np.float32)
+    return torch.from_numpy(cost), torch.from_numpy(carry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dir_set", list(K1C_SETS))
+@pytest.mark.parametrize("shape", [(37, 53, 48), (16, 300, 256), (1, 70, 32), (9, 1, 16),
+                                   (23, 31, 80), (128, 96, 256)])
+def test_k1c_bitwise_vs_twin(cuda, dtype, dir_set, shape):
+    """Integer costs and a random non-zero carry: S and the carry out equal
+    the twin's bit for bit for every carried direction of both sweeps,
+    diagonal walks that wrap included; one launch a call."""
+    dirs, with_s = K1C_SETS[dir_set]
+    rng = np.random.default_rng(5)
+    cost, carry = _k1c_case(rng, shape, dirs)
+    cost = cost.to(dtype)
+    out = torch.full_like(carry, -1.0, device=cuda)
+    before = aggregate_paths_cuda.launches
+    got = aggregate_paths_cuda(cost.to(cuda), 200.0, 800.0, dirs, carry.to(cuda), out,
+                               with_s=with_s)
+    assert aggregate_paths_cuda.launches == before + 1
+    want_out = torch.empty_like(carry)
+    want = aggregate_paths(cost, 200.0, 800.0, dirs, carry, want_out, with_s=with_s)
+    assert torch.equal(out.cpu(), want_out)
+    if with_s:
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert got is None and want is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dir_set", ["down8", "up"])
+def test_k1c_float_costs_vs_twin(cuda, dir_set):
+    """Non-integer costs and carries: the carries bit for bit (each is one
+    direction's Lr, computed as the twin does), S within rtol 1e-6."""
+    dirs, with_s = K1C_SETS[dir_set]
+    cost, carry = _k1c_case(np.random.default_rng(6), (40, 77, 128), dirs, integer=False)
+    out = torch.empty_like(carry, device=cuda)
+    got = aggregate_paths_cuda(cost.to(cuda), 200.5, 800.25, dirs, carry.to(cuda), out,
+                               with_s=with_s)
+    want_out = torch.empty_like(carry)
+    want = aggregate_paths(cost, 200.5, 800.25, dirs, carry, want_out, with_s=with_s)
+    assert torch.equal(out.cpu(), want_out)
+    if with_s:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_paths", [8, 5, 4])
+def test_k1c_without_carry_is_k1(cuda, num_paths):
+    """No carry and an S: the carry entry computes K1's S, and K1 itself is
+    unchanged against its twin."""
+    rng = np.random.default_rng(7)
+    cost = torch.from_numpy(rng.integers(0, 3000, (33, 61, 64)).astype(np.float32)).to(cuda)
+    k1 = aggregate_8path_cuda(cost, 200.0, 800.0, num_paths)
+    assert torch.equal(aggregate_paths_cuda(cost, 200.0, 800.0, SGBM_DIRECTIONS[num_paths]), k1)
+    assert torch.equal(k1.cpu(), aggregate_8path(cost.cpu(), 200.0, 800.0, num_paths))
+
+
+@pytest.mark.cuda
+def test_k1c_wrapper_rejects(cuda):
+    dirs = SGBM_DIRECTIONS[8][:3]
+    c = torch.zeros((8, 20, 16), device=cuda)
+    carry = torch.zeros((3, 20, 16), device=cuda)
+    with pytest.raises(ValueError, match=r"\(3, 20, 16\)"):
+        aggregate_paths_cuda(c, 1.0, 2.0, dirs, torch.zeros((2, 20, 16), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        aggregate_paths_cuda(c, 1.0, 2.0, dirs, carry.double())
+    with pytest.raises(ValueError, match="float32"):
+        aggregate_paths_cuda(c, 1.0, 2.0, dirs, None, carry.cpu())
+    with pytest.raises(ValueError, match="overlap"):
+        aggregate_paths_cuda(c, 1.0, 2.0, dirs, carry, carry)
+    with pytest.raises(ValueError, match="directions"):
+        aggregate_paths_cuda(c, 1.0, 2.0, [(0, 0)])
+    with pytest.raises(ValueError, match="contiguous"):
+        aggregate_paths_cuda(c[:, 4:], 1.0, 2.0, dirs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_paths", [8, 5, 4])
+def test_banded_sgbm_on_card_equals_cpu(cuda, num_paths):
+    """sgbm_disparity_banded on the card (K1c for every band) equals its
+    CPU twin bit for bit on an integer pair, with 2 nbands - 1 launches
+    (nbands without upward paths) and no K1."""
+    from stereomatch_tpu_torch.config import SGBMConfig
+    from stereomatch_tpu_torch.ops.sgbm import sgbm_disparity_banded
+
+    rng = np.random.default_rng(8)
+    base = rng.random((150, 200))
+    for _ in range(2):
+        base = (base + np.roll(base, 1, 1) + np.roll(base, 1, 0)) / 3
+    base = torch.from_numpy(np.round(base * 255).astype(np.float32))
+    left, right = base[:, :192].contiguous(), base[:, 5:197].contiguous()
+    cfg = SGBMConfig(min_disp=0, num_disp=32, block_size=5, num_paths=num_paths)
+    k1, k1c = aggregate_8path_cuda.launches, aggregate_paths_cuda.launches
+    got = sgbm_disparity_banded(left, right, cfg, band_rows=32, device=cuda)
+    nb = 5  # 150 rows in bands of 32
+    assert aggregate_paths_cuda.launches - k1c == (nb if num_paths == 5 else 2 * nb - 1)
+    assert aggregate_8path_cuda.launches == k1
+    want = sgbm_disparity_banded(left, right, cfg, band_rows=32, device="cpu")
+    assert torch.equal(got.disparity.cpu(), want.disparity)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert torch.equal(got.right_disparity.cpu(), want.right_disparity)
 
 
 def _resets(rng, m, mean_seg):
@@ -309,8 +432,8 @@ from stereomatch_tpu_torch import _build
 from stereomatch_tpu_torch.ops.device_forest import build_forest_device
 from stereomatch_tpu_torch.ops.mst_scan_cuda import (
     ancestor_sums, ancestor_sums_twin, segmented_cumsum, segmented_cumsum_twin)
-from stereomatch_tpu_torch.ops.sgbm import aggregate_8path
-from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda
+from stereomatch_tpu_torch.ops.sgbm import SGBM_DIRECTIONS, aggregate_8path, aggregate_paths
+from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
 ext = _build._load_with_nvcc(False, Path(sys.argv[1]))
 assert Path(ext.__file__).parent == Path(sys.argv[1]), ext.__file__
 _build.load_kernels = lambda verbose=False: ext
