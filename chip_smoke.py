@@ -51,9 +51,21 @@ then `models.mst.mst_stereo_c2f` on the first frame with 2TGV and with no
 prior (gated, its K2 / K2a launches held), the NL2TGV and TV priors at
 full size (timed, device kernels a call), and
 `models.coupled.coupled_wta_stereo` on the guided left volume (gated,
-bit-equality). Every path's K1 / K1c / K2 / K2a launches are counted and
-held to its frame mix. Also reports whether the server gives
-the same maps twice for the same frame and seed. Fails (non-zero exit,
+bit-equality). Last, the apps as users run them, on files the script
+writes (frames as 8-bit PNG under the FLIR cameras' names, an identity rig
+and a distorted one as YAML and XML FileStorage): `apps.stereo_test.run`
+on the 2048x1536 frame at 256 disparities (its map held to
+`ops.sgbm.sgbm_disparity` on the same gray, GT gated, stages, peak memory,
+the cloud's points), `apps.stereo_yin.run` at 2048x1536 with 20 of its 100
+iterations and both of its volume routes at a quarter scale (the mc-cnn
+files hold the built-in volumes: bit-equal maps), `apps.stream.run_mst`
+in video mode on 5 frames at scale 0.5 with the device forest, `stream.run`
+and a resumed `run_mst` that skips every frame, and `apps.cli.main` for all
+ten algorithms at 480x640 with -i, -o and -p. Every path's K1 / K1c / K2 /
+K2a launches are counted and held to its frame mix. Also reports whether the server gives
+the same maps twice for the same frame and seed. The band check holds
+the band-streamed SGBM equal to the whole frame on every pixel of the
+integer gray. Fails (non-zero exit,
 no result line) on any fault, when the host forest builder falls back
 to its Python stand-in, and when no CUDA device is present. Imports nothing of jax or of the JAX package, and asserts that
 no module of either was loaded. The last stdout line is {"ok": true,
@@ -145,6 +157,49 @@ C2F_LAUNCHES = {"K1": 0, "K1c": 0, "K2": 246, "K2a": 246}
 # built-in guided left volume: JAX's digits (jax_classic_gt.py
 # coupled_wta: EPE 0.20924, bad2 0.00088137) plus 10%
 CWTA_GATES = {"epe": 0.23017, "bad2": 0.00096951}
+# the apps phase (apps/: what users run), after every other path, on files
+# written as 8-bit PNG under the FLIR cameras' names with an identity rig
+# (rectification maps every pixel onto itself, so the scenes' exact GT
+# holds). stereo_test runs uncut on the band scene (2048x1536, SGBM at
+# min_disp 16 and 256 disparities, K1 on the whole frame). Its GT gates are
+# the JAX package's digits on the same 8-bit frame plus 10% (it misses
+# tests/test_gt_battery.py's SGBM gates there: min_disp 16 and the 272
+# unevaluated columns count as errors): jax_classic_gt.py
+# stereo_test_banded, the app's SGBM through the JAX package's band driver
+# (its whole frame would hold about 30 GB of host memory; the two routes'
+# digits agree in every printed digit at 768x1024): EPE 0.80800, D1 0.015391
+STEREO_TEST_GATES = {"epe": 0.88880, "d1_all": 0.016930}
+STEREO_TEST_LAUNCHES = {"K1": 1, "K1c": 0, "K2": 0, "K2a": 0}
+# stereo_yin at 2048x1536 and its 100 disparities with 20 of its 100
+# iterations (cut, for time), gated as the flat frame; its mc-cnn route at a
+# quarter scale (scale=0.25, 512x384) beside the built-in route at the same
+# scale. Each run: 2 views x 20 iterations x 3 scans of each kind
+YIN_SHAPE = (1536, 2048)
+YIN_RUN = dict(max_disp=100, iterations=20)
+YIN_LAUNCHES = {"K1": 0, "K1c": 0, "K2": 120, "K2a": 120}
+# stream.run_mst on the app's 5 ids at scale 0.5 (1024x768) in video mode,
+# the main path's composition: SGBM-seeded keyframes (frames 0 and 3), the
+# device forest, 4 iterations; temporal frames 2 iterations. The frames are
+# a 768x1024 sequence, each pixel written as a 2x2 block, so the app's
+# subsampling gives the rendered frames back. Per keyframe one SGBM seed
+# and 2 views x (1 seed cost + 4 iterations) x 3 scans, per temporal frame
+# 2 x (1 + 2) x 3
+STREAM_IDS = (20, 40, 60, 61, 80)
+STREAM_SHAPE = (768, 1024, 128)
+STREAM_MST = dict(scale=0.5, max_disp=128, iterations=4, sgbm_seed=True,
+                  forest_backend="device", temporal_reseed=3, scene_cut_ratio=0.6)
+STREAM_KEY = {"K1": 1, "K1c": 0, "K2": 30, "K2a": 30}
+STREAM_TEMPORAL = {"K1": 0, "K1c": 0, "K2": 18, "K2a": 18}
+# the CLI's ten algorithms at 480x640 (cut: each engine runs at full size in
+# an earlier phase) with the distorted rig (-i), -o and -p; launches per call
+CLI_SHAPE = (480, 640, 64)
+CLI_ALGORITHMS = ("bm", "sgbm", "hh", "sgbm3way", "census", "costvolume", "mst", "sgbm_mst",
+                  "pm", "coupled")
+CLI_CLOUDS = (".ply", ".pcd", ".xyz")
+CLI_K1 = ("sgbm", "hh", "sgbm3way", "sgbm_mst")
+# mst: MSTConfig(max_disp=64)'s 100 iterations; sgbm_mst: the seed's cost +
+# its 10 fine iterations; 2 views and 3 scans of each kind a tree filter
+CLI_K2 = {"mst": 600, "sgbm_mst": 66}
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -158,6 +213,62 @@ K1_RTOL = 1e-6
 
 def log(*a):
     print(*a, flush=True)
+
+
+def write_calibration(path: str, **mats) -> None:
+    """An OpenCV FileStorage of `mats` (name -> float64 matrix) as
+    opencv-matrix nodes: XML where `path` ends in .xml, else YAML. Values
+    are written with repr, so they read back exactly."""
+    nodes = {k: np.atleast_2d(np.asarray(v, np.float64)) for k, v in mats.items()}
+    if path.endswith(".xml"):
+        body = "".join(
+            f'<{k} type_id="opencv-matrix">\n  <rows>{m.shape[0]}</rows>\n  <cols>{m.shape[1]}'
+            f"</cols>\n  <dt>d</dt>\n  <data>\n    {' '.join(map(repr, m.ravel().tolist()))}"
+            f"</data></{k}>\n" for k, m in nodes.items())
+        text = f'<?xml version="1.0"?>\n<opencv_storage>\n{body}</opencv_storage>\n'
+    else:
+        text = "%YAML:1.0\n---\n" + "".join(
+            f"{k}: !!opencv-matrix\n   rows: {m.shape[0]}\n   cols: {m.shape[1]}\n   dt: d\n"
+            f"   data: [ {', '.join(map(repr, m.ravel().tolist()))} ]\n"
+            for k, m in nodes.items())
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def identity_calibration(h: int, w: int, f: float = 1800.0) -> dict:
+    """Two equal pinhole cameras without distortion, side by side (baseline
+    0.1 along -x), principal points at the image centres: rectification
+    maps every pixel onto itself, at this size and rescaled."""
+    m = np.array([[f, 0.0, (w - 1) / 2.0], [0.0, f, (h - 1) / 2.0], [0.0, 0.0, 1.0]])
+    return dict(M1=m, D1=np.zeros((1, 5)), M2=m.copy(), D2=np.zeros((1, 5)), R=np.eye(3),
+                T=np.array([[-0.1], [0.0], [0.0]]))
+
+
+def distorted_calibration(h: int, w: int) -> dict:
+    """A rig that rectification has to warp: radial and tangential
+    distortion, unequal focal lengths and a small rotation between the
+    cameras."""
+    m1 = np.array([[0.92 * w, 0.0, 0.51 * w], [0.0, 0.92 * w, 0.49 * h], [0.0, 0.0, 1.0]])
+    m2 = np.array([[0.93 * w, 0.0, 0.49 * w], [0.0, 0.93 * w, 0.505 * h], [0.0, 0.0, 1.0]])
+    a, b = 0.01, -0.006  # radians about y, then about z
+    ry = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
+    rz = np.array([[np.cos(b), -np.sin(b), 0.0], [np.sin(b), np.cos(b), 0.0], [0.0, 0.0, 1.0]])
+    return dict(M1=m1, D1=np.array([[-0.08, 0.03, 0.001, -0.0005, 0.0]]), M2=m2,
+                D2=np.array([[-0.07, 0.02, -0.0008, 0.0004, 0.0]]), R=rz @ ry,
+                T=np.array([[-0.1], [0.002], [0.001]]))
+
+
+def write_frame_pair(data_dir: str, fid: int, left_bgr, right_bgr) -> None:
+    """The pair as 8-bit PNG files (lossless) under the FLIR cameras' file
+    names, `{fid:06d}_191400042.jpg` (left) and `_191400039.jpg` (right);
+    the readers pick the format from the file's signature."""
+    import os
+
+    from PIL import Image
+
+    for cam, img in (("191400042", left_bgr), ("191400039", right_bgr)):
+        rgb = np.clip(np.round(np.asarray(img)[..., ::-1]), 0, 255).astype(np.uint8)
+        Image.fromarray(rgb).save(os.path.join(data_dir, f"{fid:06d}_{cam}.jpg"), format="PNG")
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -647,16 +758,16 @@ def patchmatch_paths(scene, dev) -> dict:
     return launches
 
 
-def banded_sgbm_path(dev) -> tuple[dict, dict]:
-    """The band-streamed SGBM at BAND_SHAPE: `pipelines.sgbm_pipeline` with
-    SGBMConfig() and speckle on a rendered frame, which takes the band
+def banded_sgbm_path(sc, dev) -> tuple[dict, dict]:
+    """The band-streamed SGBM on `sc`, the scene rendered at BAND_SHAPE:
+    `pipelines.sgbm_pipeline` with SGBMConfig() and speckle, which takes the band
     branch; one warm call (its launches counted and held to
     BAND_LAUNCHES), BAND_TIMED timed calls, the peak device memory above
     the resident, the GT digits gated, whether the maps are bit-equal call
     to call. Then the banded SGBM against the whole-frame sgbm_disparity
     (both peaks): validity or a disparity step flipped on under 0.2% of
-    the frame's pixels, and on the same gray rounded to integers flips
-    (beyond 1e-5 px) under 0.2%; K1 at D = 256 on the
+    the frame's pixels, and on the same gray rounded to integers no pixel
+    differing at all (every SGBM sum is exact there); K1 at D = 256 on the
     whole frame's cost against its twin, and K1c against its twin on one
     band with the carries the bands around it hand it. Returns (each path's
     launch counts, the kernel rows of K1 at D = 256 and of K1c)."""
@@ -668,13 +779,10 @@ def banded_sgbm_path(dev) -> tuple[dict, dict]:
         sgbm_disparity, sgbm_disparity_banded,
     )
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
-    from stereomatch_tpu_torch.synthetic import render_scene, scene_eval_mask
+    from stereomatch_tpu_torch.synthetic import scene_eval_mask
 
     t_section = time.perf_counter()
     h, w, d = BAND_SHAPE
-    t0 = time.perf_counter()
-    sc = render_scene(SCENE_SEED, h, w, d)
-    log(f"render: {time.perf_counter() - t0:.1f} s (one frame {h}x{w}, max_disp {d})")
     rgb_l, rgb_r = sc.left[..., ::-1], sc.right[..., ::-1]  # the scenes are BGR
     cfg = SGBMConfig()
     if h * w * cfg.num_disp * 4 <= pipelines.SGBM_BAND_THRESHOLD_BYTES:
@@ -747,23 +855,24 @@ def banded_sgbm_path(dev) -> tuple[dict, dict]:
     # S's differences by a denominator as small as 1: the maps differ in
     # their subpixel bits on many pixels, while only a cost tie resolved
     # the other way moves a disparity by a step or flips validity. On the
-    # same gray rounded to integers every sum is exact, so any flip there
-    # is the banded SGBM's own (tests/test_sgbm_banded.py's bound).
+    # same gray rounded to integers every sum is exact, so the two maps
+    # must be equal on every pixel.
     jitter, ties = flip_share(mono, band, 1e-5).item(), flip_share(mono, band, 0.1).item()
     del band, mono
     band_i = sgbm_disparity_banded(gl.round(), gr.round(), cfg, device=dev)
     mono_i = sgbm_disparity(gl.round(), gr.round(), cfg)
-    exact = flip_share(mono_i, band_i, 1e-5).item()
+    exact = flip_share(mono_i, band_i, 0.0).item()
     del band_i, mono_i
     log(f"sgbm_disparity_banded vs sgbm_disparity {h}x{w}x{cfg.num_disp}: the float luma's maps "
         f"differ by more than 1e-5 px or in validity on {jitter:.6f} of pixels, by more than "
-        f"0.1 px or in validity on {ties:.6f}; the integer gray's on {exact:.6f}; peak device "
+        f"0.1 px or in validity on {ties:.6f}; the integer gray's differ at all on {exact:.6f}; "
+        f"peak device "
         f"memory above the start {peaks['banded'][0] / 1e9:.2f} GB banded "
         f"({peaks['banded'][1]:.3f} s), {peaks['monolithic'][0] / 1e9:.2f} GB whole frame "
         f"({peaks['monolithic'][1]:.3f} s)")
-    if not (ties < 0.002 and exact < 0.002):
+    if not (ties < 0.002 and exact == 0):
         raise AssertionError(f"banded vs whole-frame SGBM: {ties:.5f} of the float luma's pixels "
-                             f"and {exact:.5f} of the integer gray's flip")
+                             f"flip, and {exact:.6f} of the integer gray's differ")
     if not peaks["banded"][0] < peaks["monolithic"][0]:
         raise AssertionError("the banded SGBM's peak is not below the whole frame's")
 
@@ -938,6 +1047,243 @@ def c2f_prior_paths(scene, dev) -> dict:
     return launches
 
 
+def scored_digits(est, gt, scored) -> dict:
+    """The GT digits of a map on the `scored` pixels (numpy in)."""
+    from stereomatch_tpu_torch.eval import disparity_metrics
+
+    if est.shape != gt.shape or not np.isfinite(est).all():
+        raise AssertionError("bad output shape or non-finite values")
+    mm = disparity_metrics(torch.from_numpy(est), torch.from_numpy(gt), torch.from_numpy(scored))
+    return {"valid": float(scored.mean()), **mm}
+
+
+def check_gates(tag, mm, gates) -> str:
+    """Hold `mm` under each gate (over it for "valid"); returns the digits."""
+    digits = ", ".join(f"{k} {mm[k]:.5f}" for k in ("valid", "epe", "bad2", "d1_all"))
+    ok = all(mm[k] > v if k == "valid" else mm[k] < v for k, v in gates.items())
+    if not ok:
+        raise AssertionError(f"{tag} misses its GT gates {gates}: {digits}")
+    return f"GT {digits} (gates {gates})"
+
+
+def upsampled2(img):
+    """Each pixel as a 2x2 block: [::2, ::2] of the result is `img`."""
+    return np.repeat(np.repeat(img, 2, axis=0), 2, axis=1)
+
+
+def apps_paths(band_scene, dev) -> dict:
+    """The four apps through their run / main on files this phase writes
+    (frames as 8-bit PNG under the FLIR names, the identity rig as YAML and
+    XML FileStorage, the distorted rig as XML), in a temporary directory
+    under build/. stereo_test on `band_scene` (uncut): its map held to
+    ops.sgbm.sgbm_disparity on the same gray, GT gated, stages, peak memory
+    and the cloud's points. stereo_yin at YIN_SHAPE (built-in volumes), then
+    at a quarter scale both routes, the mc-cnn one reading the built-in
+    volumes written with save_mccnn_volume. stream.run_mst in video mode,
+    stream.run, and run_mst again with resume. The CLI's ten algorithms.
+    Each run's launches are counted and held. Returns them by path."""
+    import os
+    import tempfile
+
+    from stereomatch_tpu_torch.apps import cli, stereo_test, stereo_yin, stream
+    from stereomatch_tpu_torch.config import SGBMConfig
+    from stereomatch_tpu_torch.io import (
+        clean_mccnn, load_image, load_mccnn_volume, save_mccnn_volume,
+    )
+    from stereomatch_tpu_torch.ops.sgbm import sgbm_disparity
+    from stereomatch_tpu_torch.synthetic import render_scene, render_sequence, scene_eval_mask
+
+    t_section = time.perf_counter()
+    launches = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_apps_", dir=root)
+    tmp = tmp_dir.name
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    os.makedirs(data)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - resident
+
+    # ---- stereo_test: the 2048x1536 FLIR frame at 256 disparities, uncut ----
+    h, w = band_scene.disp_left.shape
+    rig = os.path.join(data, "identity.yml")
+    write_calibration(rig, **identity_calibration(h, w))
+    write_calibration(os.path.join(data, "identity.xml"), **identity_calibration(h, w))
+    t0 = time.perf_counter()
+    write_frame_pair(data, 20, band_scene.left, band_scene.right)
+    log(f"apps: wrote frame 20 ({w}x{h} PNG pair) in {time.perf_counter() - t0:.1f} s")
+    ((disp, xyz), sec, peak), launches["stereo_test"] = counted(lambda: timed(
+        lambda: stereo_test.run(data, 20, rig, out, device=dev)))
+    expect_exact("stereo_test", launches["stereo_test"], STEREO_TEST_LAUNCHES,
+                 "one whole-frame SGBM at D = 256")
+    with open(os.path.join(out, "cloud_000020.pcd")) as f:
+        points = int(next(line for line in f if line.startswith("POINTS")).split()[1])
+    # the same gray (the files' pixels: the rig is the identity) through
+    # sgbm_disparity: the app's map must be the same map
+    rgb = [torch.from_numpy(load_image(os.path.join(data, f"000020_{cam}.jpg"))).to(dev)
+           for cam in ("191400042", "191400039")]
+    gl, gr = (0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2] for x in rgb)
+    ref = sgbm_disparity(gl, gr, SGBMConfig(min_disp=16, num_disp=256)).disparity.cpu().numpy()
+    del rgb, gl, gr
+    if np.array_equal(disp, ref):
+        same = "bit for bit"
+    else:  # K1's float sums land in any order (ROADMAP queue 3)
+        if not (np.array_equal(disp >= 16, ref >= 16) and np.abs(disp - ref).max() <= 1e-3):
+            raise AssertionError("stereo_test's map differs from sgbm_disparity's beyond 1e-3 px "
+                                 "or in validity")
+        same = (f"within {np.abs(disp - ref).max():.3g} px, validity equal, "
+                f"{np.mean(disp != ref):.6f} of pixels not bit-equal")
+    mm = scored_digits(disp, band_scene.disp_left, scene_eval_mask(band_scene))
+    log(f"stereo_test.run {w}x{h}x256 (SGBM min_disp 16, identity rig): {sec:.3f} s, peak device "
+        f"memory {peak / 1e9:.2f} GB above the resident; map equal to sgbm_disparity's {same}; "
+        f"{check_gates('stereo_test', mm, STEREO_TEST_GATES)}; PCD {points} points; "
+        f"xyz {xyz.shape}")
+    del disp, xyz, ref
+
+    # ---- stereo_yin at 2048x1536, then both routes at a quarter scale ----
+    yh, yw = YIN_SHAPE
+    t0 = time.perf_counter()
+    ysc = render_scene(SCENE_SEED + 1, yh, yw, YIN_RUN["max_disp"])
+    write_frame_pair(data, 21, ysc.left, ysc.right)
+    log(f"apps: rendered and wrote frame 21 ({yw}x{yh}, max_disp {YIN_RUN['max_disp']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rig_xml = os.path.join(data, "identity.xml")
+    ((disp, _), sec, peak), launches["stereo_yin"] = counted(lambda: timed(
+        lambda: stereo_yin.run(data, 21, rig_xml, out, **YIN_RUN, device=dev)))
+    expect_exact("stereo_yin", launches["stereo_yin"], YIN_LAUNCHES,
+                 f"2 views x {YIN_RUN['iterations']} iterations x 3")
+    # the LR check zeroes what it rejects and the app clamps to 10: score
+    # the pixels above the clamp
+    mm = scored_digits(disp, ysc.disp_left, (disp > 10.0) & scene_eval_mask(ysc))
+    log(f"stereo_yin.run {yw}x{yh}x{YIN_RUN['max_disp']} ({YIN_RUN['iterations']} of the app's "
+        f"100 iterations, built-in guided volumes, host forest): {sec:.3f} s, peak device "
+        f"memory {peak / 1e9:.2f} GB above the resident; {check_gates('stereo_yin', mm, GATES)}")
+    del disp
+    quarter = {}
+    for route in ("builtin", "mccnn"):
+        mc_dir = None
+        if route == "mccnn":  # the quarter frame's built-in volumes as mc-cnn files
+            mc_dir = os.path.join(tmp, "mccnn")
+            os.makedirs(mc_dir)
+            left, right = stereo_test.load_pair(data, 21, 0.25)
+            vols = stereo_yin.builtin_cost_volumes(torch.from_numpy(left).to(dev),
+                                                   torch.from_numpy(right).to(dev),
+                                                   YIN_RUN["max_disp"])
+            qh, qw = left.shape[:2]
+            for name, vol in zip(("left.bin", "right.bin"), vols):
+                path = os.path.join(mc_dir, name)
+                save_mccnn_volume(path, vol)
+                back = clean_mccnn(torch.from_numpy(
+                    load_mccnn_volume(path, qh, qw, YIN_RUN["max_disp"])).to(dev))
+                if not torch.equal(back, vol):
+                    raise AssertionError(f"the mc-cnn file {name} does not read back equal")
+            del vols, back
+        path = f"stereo_yin_quarter_{route}"
+        ((disp, _), sec, _), launches[path] = counted(lambda: timed(
+            lambda: stereo_yin.run(data, 21, rig_xml, out, **YIN_RUN, scale=0.25,
+                                   mccnn_dir=mc_dir, verbose=False, device=dev)))
+        expect_exact(path, launches[path], YIN_LAUNCHES,
+                     f"2 views x {YIN_RUN['iterations']} iterations x 3")
+        quarter[route] = (disp, sec)
+    if not np.array_equal(quarter["builtin"][0], quarter["mccnn"][0]):
+        n = int(np.count_nonzero(quarter["builtin"][0] != quarter["mccnn"][0]))
+        raise AssertionError(f"stereo_yin's mc-cnn route differs from the built-in one on {n} "
+                             f"pixels of equal volumes")
+    log(f"stereo_yin at scale 0.25 ({quarter['builtin'][0].shape}): built-in route "
+        f"{quarter['builtin'][1]:.3f} s, mc-cnn route {quarter['mccnn'][1]:.3f} s on the same "
+        f"volumes written and read back equal; the two maps bit-equal")
+
+    # ---- stream: run_mst in video mode on 5 ids, run, then resume ----
+    sh, sw, sd = STREAM_SHAPE
+    t0 = time.perf_counter()
+    seq = render_sequence(SCENE_SEED, len(STREAM_IDS), sh, sw, sd)
+    sdata = os.path.join(tmp, "stream")
+    os.makedirs(sdata)
+    for fid, sc in zip(STREAM_IDS, seq):
+        write_frame_pair(sdata, fid, upsampled2(sc.left), upsampled2(sc.right))
+    log(f"apps: rendered {len(STREAM_IDS)} frames {sw}x{sh} and wrote them at {2 * sw}x{2 * sh} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    srig = os.path.join(sdata, "identity.yml")
+    write_calibration(srig, **identity_calibration(2 * sh, 2 * sw))
+    sout = os.path.join(tmp, "stream_out")
+    ((disps, waits), sec, peak), launches["stream_run_mst"] = counted(lambda: timed(
+        lambda: stream.run_mst(sdata, srig, sout, ids=STREAM_IDS, **STREAM_MST, device=dev)))
+    keys = [i % STREAM_MST["temporal_reseed"] == 0 for i in range(len(STREAM_IDS))]
+    want = {k: sum(STREAM_KEY[k] if key else STREAM_TEMPORAL[k] for key in keys)
+            for k in STREAM_KEY}
+    expect_exact("stream_run_mst", launches["stream_run_mst"], want,
+                 f"{sum(keys)} keyframes + {len(keys) - sum(keys)} temporal frames, no scene cut")
+    digits = []
+    for i, (d, sc) in enumerate(zip(disps, seq)):
+        mm = scored_digits(d, sc.disp_left, (d > 0) & scene_eval_mask(sc))
+        digits.append(check_gates(f"stream_run_mst frame {i}", mm,
+                                  GATES if keys[i] else TEMPORAL_GATES))
+    log(f"stream.run_mst {len(STREAM_IDS)} ids at {sw}x{sh}x{sd} (video mode, device forest, "
+        f"keyframes {keys}): {sec:.3f} s, peak device memory {peak / 1e9:.2f} GB above the "
+        f"resident; forest waits {['%.3f' % x for x in waits]} s; " + "; ".join(
+            f"frame {i} {g}" for i, g in enumerate(digits)))
+    (maps, sec, _), launches["stream_run"] = counted(lambda: timed(
+        lambda: stream.run(sdata, srig, sout, ids=STREAM_IDS, device=dev)))
+    expect_exact("stream_run", launches["stream_run"], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0},
+                 "cost-volume frames")
+    # scale 0.25 of the written frames is scale 0.5 of the rendered ones:
+    # every other pixel, at half the disparity
+    for i, (d, sc) in enumerate(zip(maps, seq)):
+        gt = sc.disp_left[::2, ::2] / 2.0
+        scored = scene_eval_mask(sc)[::2, ::2]
+        digits[i] = check_gates(f"stream_run frame {i}", scored_digits(d, gt, scored),
+                                CLASSIC_GATES["costvolume"])
+    log(f"stream.run {len(STREAM_IDS)} ids at scale 0.25 ({maps.shape[2]}x{maps.shape[1]}, the "
+        f"app's defaults; frame by frame, not the JAX mesh): {sec:.3f} s; "
+        + "; ".join(f"frame {i} {g}" for i, g in enumerate(digits)))
+    (again, sec, _), launches["stream_resume"] = counted(lambda: timed(
+        lambda: stream.run_mst(sdata, srig, sout, ids=STREAM_IDS, **STREAM_MST, resume=True,
+                               device=dev)))
+    expect_exact("stream_resume", launches["stream_resume"], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0},
+                 "every frame already written")
+    if again[0].size or again[1]:
+        raise AssertionError("stream.run_mst with resume recomputed frames")
+    log(f"stream.run_mst with resume: skipped all {len(STREAM_IDS)} frames in {sec:.3f} s")
+    del disps, maps, seq
+
+    # ---- the CLI's ten algorithms at 480x640 with -i, -o and -p ----
+    ch, cw, cd = CLI_SHAPE
+    csc = render_scene(SCENE_SEED, ch, cw, cd)
+    cdata = os.path.join(tmp, "cli")
+    os.makedirs(cdata)
+    write_frame_pair(cdata, 0, csc.left, csc.right)
+    crig = os.path.join(cdata, "distorted.xml")
+    write_calibration(crig, **distorted_calibration(ch, cw))
+    lp, rp = (os.path.join(cdata, f"000000_{cam}.jpg") for cam in ("191400042", "191400039"))
+    secs = {}
+    for i, alg in enumerate(CLI_ALGORITHMS):
+        png = os.path.join(cdata, f"{alg}.png")
+        cloud = os.path.join(cdata, alg + CLI_CLOUDS[i % len(CLI_CLOUDS)])
+        path = f"cli_{alg}"
+        (rc, secs[alg], _), launches[path] = counted(lambda: timed(lambda: cli.main(
+            [lp, rp, "--algorithm", alg, "--max-disparity", str(cd), "-i", crig, "-o", png,
+             "-p", cloud, "--device", str(dev)])))
+        k2 = CLI_K2.get(alg, 0)
+        expect_exact(path, launches[path], {"K1": int(alg in CLI_K1), "K1c": 0, "K2": k2,
+                                            "K2a": k2}, "one call")
+        if rc != 0 or not os.path.exists(cloud) or os.path.getsize(cloud) == 0:
+            raise AssertionError(f"cli {alg}: rc {rc}, cloud file missing or empty")
+        if load_image(png, gray=True).shape != (ch, cw):
+            raise AssertionError(f"cli {alg}: the disparity PNG does not decode to {cw}x{ch}")
+    log(f"cli.main at {cw}x{ch}, --max-disparity {cd}, the distorted rig: rc 0, PNG {cw}x{ch} and "
+        f"a cloud for every algorithm; seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    tmp_dir.cleanup()
+    log(f"apps section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -952,7 +1298,7 @@ def main() -> int:
     from stereomatch_tpu_torch._build import load_kernels
     from stereomatch_tpu_torch.config import MSTConfig, production_mst_config
     from stereomatch_tpu_torch.native.build import build as build_native
-    from stereomatch_tpu_torch.synthetic import render_sequence
+    from stereomatch_tpu_torch.synthetic import render_scene, render_sequence
     from stereomatch_tpu_torch.models.mst import _fused_capacities, build_view_forest
     from stereomatch_tpu_torch.ops.mst import refine_deltas
     from stereomatch_tpu_torch.models.sgbm_mst import (
@@ -1145,9 +1491,16 @@ def main() -> int:
     # the PatchMatch engines after them, for the same reason
     by_path.update(patchmatch_paths(sc0, dev))
     # then the band-streamed SGBM, c2f with the priors and the coupled WTA
-    band_launches, band_rows = banded_sgbm_path(dev)
+    t0 = time.perf_counter()
+    band_scene = render_scene(SCENE_SEED, *BAND_SHAPE)
+    log(f"render: {time.perf_counter() - t0:.1f} s (one frame {BAND_SHAPE[0]}x{BAND_SHAPE[1]}, "
+        f"max_disp {BAND_SHAPE[2]})")
+    band_launches, band_rows = banded_sgbm_path(band_scene, dev)
     by_path.update(band_launches)
     by_path.update(c2f_prior_paths(sc0, dev))
+    # last, the apps on files, stereo_test on the band scene
+    by_path.update(apps_paths(band_scene, dev))
+    del band_scene
 
     # the port imports nothing of jax and nothing of the JAX package
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))

@@ -26,6 +26,17 @@ again and scored on the surviving pixels, with the share of pixels that
 survive as `valid`. `coupled_wta` is `coupled_wta_stereo` with
 `CoupledConfig(max_disp=D - 1)` and `TGVParams()` on the built-in guided
 left volume, the left luma its guide, scored on its disparity.
+`stereo_test` is the StereoTest app (`apps/stereo_test.py`, SGBM at
+min_disp 16 and 256 disparities on the whole frame) on the frame written
+as 8-bit PNG under the FLIR cameras' names with the identity rig of
+`chip_smoke.py`, at the 2048x1536 FLIR frame unless `--shape` is given
+(its third number is then ignored: the app searches [16, 272)).
+At 2048x1536 the JAX app's whole-frame SGBM holds about 30 GB of host
+memory (7.5 GB at 768x1024); `stereo_test_banded` computes the same map
+through the JAX package's band-streamed SGBM (`ops.sgbm.
+sgbm_disparity_banded`, about 6 GB) on the same 8-bit frame's luma, whose
+maps differ from the whole frame's only in float32 jitter; run both at a
+size that fits to see the digits agree.
 This script is the JAX side; the port (`stereomatch_tpu_torch`) never
 imports it.
 """
@@ -48,10 +59,11 @@ from stereomatch_tpu.eval import disparity_metrics
 from stereomatch_tpu.synthetic import render_scene, scene_eval_mask
 
 ENGINES = ("sgbm", "bm", "census", "costvolume", "pm", "coupled", "sgbm_banded", "c2f",
-           "c2f_none", "coupled_wta")
+           "c2f_none", "coupled_wta", "stereo_test", "stereo_test_banded")
 SCENE_SEED = 0  # chip_smoke.py's scene
 # the engines run at another shape than --shape's default
-ENGINE_SHAPES = {"sgbm_banded": (1536, 2048, 256)}
+ENGINE_SHAPES = {"sgbm_banded": (1536, 2048, 256), "stereo_test": (1536, 2048, 256),
+                 "stereo_test_banded": (1536, 2048, 256)}
 
 
 def census_banded(rgb_l, rgb_r, d: int, step: int = 64, halo: int = 8) -> np.ndarray:
@@ -87,6 +99,24 @@ def run(engine: str, rgb_l, rgb_r, d: int):
                                                                 block_size=5))
     if engine == "sgbm_banded":
         return pipelines.sgbm_pipeline(rgb_l, rgb_r, SGBMConfig(), speckle=True)
+    if engine == "stereo_test":
+        import tempfile
+
+        from chip_smoke import identity_calibration, write_calibration, write_frame_pair
+        from stereomatch_tpu.apps import stereo_test
+
+        with tempfile.TemporaryDirectory() as tmp:
+            write_frame_pair(tmp, 20, rgb_l[..., ::-1], rgb_r[..., ::-1])
+            cal = f"{tmp}/rig.yml"
+            write_calibration(cal, **identity_calibration(*rgb_l.shape[:2]))
+            return stereo_test.run(tmp, 20, cal, f"{tmp}/out", verbose=False)[0]
+    if engine == "stereo_test_banded":
+        from stereomatch_tpu.ops.sgbm import sgbm_disparity_banded
+
+        l8, r8 = (np.clip(np.round(x), 0, 255).astype(np.uint8) for x in (rgb_l, rgb_r))
+        out = sgbm_disparity_banded(pipelines._gray255(l8), pipelines._gray255(r8),
+                                    SGBMConfig(min_disp=16, num_disp=256))
+        return np.asarray(out.disparity)
     if engine in ("c2f", "c2f_none"):
         from stereomatch_tpu.config import MSTConfig
         from stereomatch_tpu.models.mst import mst_stereo_c2f

@@ -2,7 +2,8 @@
 `stereomatch_tpu/config.py` (`CensusConfig`, `BMConfig`, `SGBMConfig`,
 `CostVolumeConfig`, `ZNCCConfig`, `GuidedFilterConfig`, `DenoiseConfig`,
 `MSTConfig`, `production_mst_config`, `PatchMatchConfig`, `CoupledConfig`,
-`WeightedMedianConfig`, `CostVolumePipelineConfig`, `replace`).
+`LRCheckConfig`, `WeightedMedianConfig`, `RectifyConfig`,
+`SGBMPipelineConfig`, `CostVolumePipelineConfig`, `replace`).
 
 Field names, defaults and signatures are the JAX package's, so a config
 built from the same fields drives either package the same way
@@ -24,9 +25,12 @@ __all__ = [
     "CoupledConfig",
     "DenoiseConfig",
     "GuidedFilterConfig",
+    "LRCheckConfig",
     "MSTConfig",
     "PatchMatchConfig",
+    "RectifyConfig",
     "SGBMConfig",
+    "SGBMPipelineConfig",
     "WeightedMedianConfig",
     "ZNCCConfig",
     "production_mst_config",
@@ -312,6 +316,15 @@ class CoupledConfig:
 
 
 @dataclass(frozen=True)
+class LRCheckConfig:
+    """Left-right consistency check + occlusion fill
+    (ref: leftRightConsistencyCheck, src/Stereo3DMST.cpp:632-710)."""
+
+    max_diff: float = 1.0
+    fill: bool = True
+
+
+@dataclass(frozen=True)
 class WeightedMedianConfig:
     """Color-weighted median filter (ref: pm.cpp:396-435 with 35x35 window;
     GPU 21x21 occluded-only variant .cu:2436-2600)."""
@@ -321,6 +334,21 @@ class WeightedMedianConfig:
     tap_stride: int = 2
     bisect_iters: int = 10
     occluded_only: bool = True  # not read: the caller passes the mask
+
+
+@dataclass(frozen=True)
+class RectifyConfig:
+    """Stereo rectification (ref: cv::stereoRectify call at
+    src/stereo_opencv.cpp:121 with CALIB_ZERO_DISPARITY, alpha=-1)."""
+
+    zero_disparity: bool = True
+    alpha: float = -1.0
+
+
+@dataclass(frozen=True)
+class SGBMPipelineConfig:
+    sgbm: SGBMConfig = SGBMConfig()
+    lr: LRCheckConfig = LRCheckConfig()
 
 
 @dataclass(frozen=True)

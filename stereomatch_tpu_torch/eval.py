@@ -1,5 +1,5 @@
-"""Disparity error metrics on torch tensors (port of the metrics of
-`stereomatch_tpu/eval.py`; its golden-file loaders are not ported yet).
+"""Disparity error metrics on torch tensors and the golden-file loaders
+(port of `stereomatch_tpu/eval.py`).
 
 Each metric takes an estimate, a ground truth and an optional bool mask of
 pixels to score (default: finite, positive ground truth) on any device,
@@ -9,9 +9,21 @@ JAX package, and averaged in float64.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["bad_pixel_rate", "d1_all", "epe", "disparity_metrics"]
+from .io.images import to_numpy
+
+__all__ = [
+    "bad_pixel_rate",
+    "d1_all",
+    "epe",
+    "disparity_metrics",
+    "load_golden_png",
+    "load_kitti_disparity",
+    "load_middlebury_pfm",
+    "save_middlebury_pfm",
+]
 
 
 def _abs_err(est, gt, valid):
@@ -54,3 +66,57 @@ def disparity_metrics(est, gt, valid=None) -> dict:
         "bad3": bad_pixel_rate(est, gt, 3.0, valid),
         "d1_all": d1_all(est, gt, valid),
     }
+
+
+# The loaders read host files into numpy arrays, as the JAX package's do;
+# the metrics above take them as they take tensors.
+
+
+def load_golden_png(path: str, scale: float = 1.0) -> np.ndarray:
+    """8-bit golden disparity PNG (the reference's build artifacts,
+    written by src/stereo_opencv.cpp:167-168). Values are raw 8-bit
+    disparities times an unknown display scale; pass `scale` to undo it."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(path))
+    if img.ndim == 3:
+        img = img[..., 0]
+    return img.astype(np.float32) * scale
+
+
+def load_kitti_disparity(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """KITTI disp_occ/disp_noc format: uint16 PNG, disparity = value/256,
+    0 = invalid. Returns (disparity, valid_mask)."""
+    from PIL import Image
+
+    raw = np.asarray(Image.open(path)).astype(np.float32)
+    valid = raw > 0
+    return raw / 256.0, valid
+
+
+def load_middlebury_pfm(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Middlebury ground-truth disparity (.pfm, grayscale float): header
+    'Pf', 'W H', scale (sign = endianness), rows bottom-to-top. Invalid
+    pixels are inf. Returns (disparity, valid_mask)."""
+    with open(path, "rb") as f:
+        if f.readline().strip() not in (b"Pf",):
+            raise ValueError(f"{path}: not a grayscale PFM")
+        dims = f.readline().split()
+        w, h = int(dims[0]), int(dims[1])
+        scale = float(f.readline().strip())
+        dtype = "<f4" if scale < 0 else ">f4"
+        data = np.frombuffer(f.read(4 * w * h), dtype=dtype).reshape(h, w)
+    disp = np.flipud(data).astype(np.float32)  # PFM rows are bottom-up
+    valid = np.isfinite(disp) & (disp > 0)
+    return disp, valid
+
+
+def save_middlebury_pfm(path: str, disp) -> None:
+    """Write a grayscale little-endian PFM (inf = invalid) from a numpy
+    array or a tensor on any device."""
+    disp = to_numpy(disp, np.float32)
+    with open(path, "wb") as f:
+        f.write(b"Pf\n")
+        f.write(f"{disp.shape[1]} {disp.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        f.write(np.flipud(disp).astype("<f4").tobytes())

@@ -20,7 +20,8 @@ from stereomatch_tpu_torch import synthetic as tsynthetic
 CONFIG_CLASSES = [
     "CensusConfig", "BMConfig", "SGBMConfig", "CostVolumeConfig", "ZNCCConfig",
     "GuidedFilterConfig", "DenoiseConfig", "MSTConfig", "CostVolumePipelineConfig",
-    "PatchMatchConfig", "WeightedMedianConfig", "CoupledConfig",
+    "PatchMatchConfig", "WeightedMedianConfig", "CoupledConfig", "LRCheckConfig",
+    "RectifyConfig", "SGBMPipelineConfig",
 ]
 
 

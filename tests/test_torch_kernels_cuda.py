@@ -535,3 +535,36 @@ def test_patchmatch_on_card_repeats_and_tracks_cpu(cuda):
         np.testing.assert_array_equal(x, y)
     for i in (2, 5):  # the disparity maps of both views
         assert np.mean(np.abs(a[i] - host[i]) <= 0.1) >= 0.95
+
+
+@pytest.mark.cuda
+def test_stereo_test_app_on_card_tracks_cpu(cuda, tmp_path):
+    """apps.stereo_test.run on the card (K1 once) against the same run on
+    the CPU (K1's twin), on files written under the FLIR names with an
+    identity rig: the maps agree within 1e-3 px on >= 99% of pixels (float
+    luma costs, which K1 sums in any order and the card's cumsums in
+    another), the reprojections where the maps are equal within 1e-6, and
+    both runs write the same two files."""
+    import os
+
+    from chip_smoke import identity_calibration, write_calibration, write_frame_pair
+    from stereomatch_tpu_torch.apps import stereo_test
+    from stereomatch_tpu_torch.synthetic import render_scene
+
+    sc = render_scene(0, 96, 144, 32)
+    data = str(tmp_path)
+    write_frame_pair(data, 20, sc.left[:, :128], sc.right[:, 16:])
+    cal = os.path.join(data, "rig.yml")
+    write_calibration(cal, **identity_calibration(96, 128))
+    k1 = aggregate_8path_cuda.launches
+    got, got_xyz = stereo_test.run(data, 20, cal, str(tmp_path / "card"), num_disp_factor=2,
+                                   verbose=False, device=cuda)
+    assert aggregate_8path_cuda.launches - k1 == 1
+    want, want_xyz = stereo_test.run(data, 20, cal, str(tmp_path / "cpu"), num_disp_factor=2,
+                                     verbose=False, device="cpu")
+    assert aggregate_8path_cuda.launches - k1 == 1
+    assert got.shape == want.shape == (96, 128)
+    assert np.mean(np.abs(got - want) <= 1e-3) >= 0.99
+    same = got == want
+    np.testing.assert_allclose(got_xyz[same], want_xyz[same], rtol=1e-6, atol=1e-6)
+    assert sorted(os.listdir(tmp_path / "card")) == sorted(os.listdir(tmp_path / "cpu"))
