@@ -61,7 +61,12 @@ iterations and both of its volume routes at a quarter scale (the mc-cnn
 files hold the built-in volumes: bit-equal maps), `apps.stream.run_mst`
 in video mode on 5 frames at scale 0.5 with the device forest, `stream.run`
 and a resumed `run_mst` that skips every frame, and `apps.cli.main` for all
-ten algorithms at 480x640 with -i, -o and -p. Every path's K1 / K1c / K2 /
+ten algorithms at 480x640 with -i, -o and -p. Then, last, the port's
+parallel/ on the card as one NCCL rank (no machine with more than one GPU
+is on record): the frame-parallel SGBM (K1), the row-tiled and (tile_y,
+tile_x, dslab) cost-volume pipelines, the slab WTA, the band-pipelined SGBM
+(K1c) at 2048x1536x256 and both 3DMST meshes (K2, K2a), each held to its
+one-process counterpart (`parallel_paths`). Every path's K1 / K1c / K2 /
 K2a launches are counted and held to its frame mix. Also reports whether the server gives
 the same maps twice for the same frame and seed. The band check holds
 the band-streamed SGBM equal to the whole frame on every pixel of the
@@ -1241,7 +1246,8 @@ def apps_paths(band_scene, dev) -> dict:
         digits[i] = check_gates(f"stream_run frame {i}", scored_digits(d, gt, scored),
                                 CLASSIC_GATES["costvolume"])
     log(f"stream.run {len(STREAM_IDS)} ids at scale 0.25 ({maps.shape[2]}x{maps.shape[1]}, the "
-        f"app's defaults; frame by frame, not the JAX mesh): {sec:.3f} s; "
+        f"app's defaults; parallel.tiled_cost_volume_batch on the process group's one rank): "
+        f"{sec:.3f} s; "
         + "; ".join(f"frame {i} {g}" for i, g in enumerate(digits)))
     (again, sec, _), launches["stream_resume"] = counted(lambda: timed(
         lambda: stream.run_mst(sdata, srig, sout, ids=STREAM_IDS, **STREAM_MST, resume=True,
@@ -1281,6 +1287,175 @@ def apps_paths(band_scene, dev) -> dict:
         f"a cloud for every algorithm; seconds {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
     tmp_dir.cleanup()
     log(f"apps section wall time {time.perf_counter() - t_section:.1f} s")
+    return launches
+
+
+def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
+    """The port's parallel/ on the card as one NCCL rank at full width (no
+    machine with more than one GPU is on record, and NCCL takes one rank a
+    card), every collective through NCCL: the group's backend must be
+    nccl. sgbm_batch_mesh on the first 2 frames with the servers' seed
+    config (K1 twice; maps bit-equal to sgbm_disparity frame by frame);
+    tiled_cost_volume_batch (frame 1 x tile 1) and tiled2d_cost_volume_stereo
+    (1, 1, 1) with lr_check on the first frame, guided and denoised, held to
+    models.costvolume.cost_volume_stereo as the CPU tests hold tiled to whole
+    (at most 1% of pixels beyond 0.02 px); wta_disparity_dslab on one slab
+    of the first frame's guided volume, bit-equal to wta_disparity;
+    sgbm_pipeline_mesh on the band scene (SGBMConfig(); one band: rank 0
+    skips its up-sweep launch, so one K1c launch), held to sgbm_disparity
+    as banded_sgbm_path holds the band driver; mst_pms_optimize_mesh and
+    mst_pms_optimize_mesh_sharded (1 x 1) on the first frame's seeded left
+    view (the server's recipe: device forest, guided volume, 2 neighbours,
+    4 iterations from refine_start 2.0), also with normalize_aggregation,
+    equal to mst_pms_optimize with the same key. Each path is counted on
+    its first call, which also sets up its groups' NCCL communicators, and
+    timed on the host clock around synchronize on that call and on a second
+    one, beside its one-process counterpart. Returns each path's launch
+    counts."""
+    import torch.distributed as dist
+
+    from stereomatch_tpu_torch import parallel, pipelines
+    from stereomatch_tpu_torch import random as trandom
+    from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
+    from stereomatch_tpu_torch.config import CostVolumeConfig, CostVolumePipelineConfig, SGBMConfig
+    from stereomatch_tpu_torch.models.costvolume import cost_volume_stereo
+    from stereomatch_tpu_torch.models.mst import _fused_capacities, _seed_min_cost
+    from stereomatch_tpu_torch.models.sgbm_mst import (
+        _default_sgbm_cfg, _gray_from_bgr, _seed_pair, _view_forest,
+    )
+    from stereomatch_tpu_torch.ops.device_forest import device_forest_arrays
+    from stereomatch_tpu_torch.ops.mst import mst_pms_optimize, plane_labels_from_disparity
+    from stereomatch_tpu_torch.ops.select import wta_disparity
+    from stereomatch_tpu_torch.ops.sgbm import sgbm_disparity
+    from stereomatch_tpu_torch.parallel import mst_mesh
+
+    t_section = time.perf_counter()
+    launches, secs = {}, {}
+    none = {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0}
+
+    def timed(path, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[path] = time.perf_counter() - t0
+        return out
+
+    def run(path, fn, want, mix):
+        """The path counted and timed, then timed again: its first call also
+        sets up the NCCL communicators of the mesh's groups."""
+        out, launches[path] = counted(lambda: timed(path + " first", fn))
+        expect_exact(path, launches[path], {**none, **want}, mix)
+        timed(path, fn)
+        return out
+
+    mesh = timed("make_mesh", lambda: parallel.make_mesh(n_tile=1, n_frame=1, device=dev))
+    mesh3 = parallel.make_mesh3(1, 1, 1, device=dev)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"the process group runs {dist.get_backend()} on "
+                             f"{dist.get_world_size()} ranks, not NCCL on one")
+    h, w = SHAPE
+
+    # ---- frames in data parallel: K1 once a frame ----
+    sgbm_cfg = _default_sgbm_cfg(cfg)
+    bgr = [(torch.from_numpy(sc.left).to(dev), torch.from_numpy(sc.right).to(dev))
+           for sc in scenes[:2]]
+    gl, gr = (torch.stack([_gray_from_bgr(p[i]) for p in bgr]) for i in (0, 1))
+    disp, valid = run("mesh_sgbm_batch", lambda: parallel.sgbm_batch_mesh(mesh, sgbm_cfg)(gl, gr),
+                      {"K1": 2}, "2 frames, one K1 launch each")
+    singles = timed("mesh_sgbm_batch_single",
+                    lambda: [sgbm_disparity(gl[k], gr[k], sgbm_cfg) for k in range(2)])
+    if not all(torch.equal(disp[k], o.disparity) and torch.equal(valid[k], o.valid)
+               for k, o in enumerate(singles)):
+        raise AssertionError("sgbm_batch_mesh's maps differ from sgbm_disparity's")
+    del disp, valid, singles, gl, gr
+
+    # ---- the cost-volume pipelines, row tiles and (tile_y, tile_x, dslab) ----
+    cv_cfg = CostVolumePipelineConfig(volume=CostVolumeConfig(min_disp=0, max_disp=MAX_DISP - 1))
+    bl, br = bgr[0]
+    shares = {}
+    for path, lr in (("mesh_tiled_batch", False), ("mesh_tiled2d_lr", True)):
+        if lr:
+            fn = parallel.tiled2d_cost_volume_stereo(mesh3, (h, w), cv_cfg, lr_check=True)
+            got = run(path, lambda: fn(bl, br), {}, "no kernel")
+        else:
+            fn = parallel.tiled_cost_volume_batch(mesh, cv_cfg)
+            got = [x[0] for x in run(path, lambda: fn(bl[None], br[None]), {}, "no kernel")]
+        whole = timed(path + "_single", lambda: cost_volume_stereo(bl, br, cv_cfg, lr_check=lr))
+        for view, g, wv in zip(("left", "right"), got, whole[:2]):
+            if g.shape != (h, w) or not torch.isfinite(g).all():
+                raise AssertionError(f"{path}: bad output shape or non-finite values")
+            shares[f"{path} {view}"] = share = ((g - wv).abs() > 0.02).double().mean().item()
+            if share > 0.01:
+                raise AssertionError(f"{path} {view}: {share:.4f} of pixels beyond 0.02 px")
+        del got, whole
+
+    # ---- the WTA over disparity slabs, one slab ----
+    vl, _ = builtin_cost_volumes(bl.flip(-1), br.flip(-1), MAX_DISP, guided=True)
+    got = run("mesh_dslab", lambda: parallel.wta_disparity_dslab(vl, 0, mesh3), {}, "no kernel")
+    if not torch.equal(got, timed("mesh_dslab_single", lambda: wta_disparity(vl, 0))):
+        raise AssertionError("wta_disparity_dslab != wta_disparity")
+
+    # ---- the band-pipelined SGBM on the band scene: one band ----
+    bh, bw, _ = BAND_SHAPE
+    bcfg = SGBMConfig()
+    pipe = parallel.sgbm_pipeline_mesh(mesh, bcfg)
+    bgl, bgr_ = (pipelines._gray255(x[..., ::-1], dev) for x in (band_scene.left,
+                                                                  band_scene.right))
+    pd, pv = run("mesh_sgbm_pipeline", lambda: pipe(bgl[None], bgr_[None]), {"K1c": 1},
+                 "one frame in one band: its down-sweep launch (rank 0 skips its up sweep)")
+    mono = timed("mesh_sgbm_pipeline_single", lambda: sgbm_disparity(bgl, bgr_, bcfg))
+
+    def flips(d, v, ref, tol):
+        return ((v[0] != ref.valid) | ((d[0] - ref.disparity).abs() > tol)).double().mean().item()
+
+    jitter, ties = flips(pd, pv, mono, 1e-5), flips(pd, pv, mono, 0.1)
+    del pd, pv, mono
+    pdi, pvi = pipe(bgl.round()[None], bgr_.round()[None])
+    exact = flips(pdi, pvi, sgbm_disparity(bgl.round(), bgr_.round(), bcfg), 0.0)
+    if not (ties < 0.002 and exact == 0):
+        raise AssertionError(f"sgbm_pipeline_mesh vs sgbm_disparity: {ties:.5f} of the float "
+                             f"luma's pixels flip, {exact:.6f} of the integer gray's differ")
+    del pdi, pvi, bgl, bgr_
+
+    # ---- 3DMST over candidates, and over candidates and nodes ----
+    tmax, adj_cap = _fused_capacities(h, w, cfg)
+    fa = device_forest_arrays(_view_forest(bl, cfg, tmax, adj_cap), h, w, tmax=tmax, check=False)
+    seed_l, _ = _seed_pair(_gray_from_bgr(bl), _gray_from_bgr(br), sgbm_cfg)
+    planes = plane_labels_from_disparity(torch.clamp(seed_l, 0.0, float(cfg.max_disp - 1)), fa)
+    kl = trandom.split(trandom.PRNGKey(0, dev))[0]
+    vl = vl.to(getattr(torch, cfg.volume_dtype))  # as the server's refine holds it
+    cmesh = mst_mesh.make_cand_mesh(1, device=dev)
+    nmesh = mst_mesh.make_cand_node_mesh(1, 1, device=dev)
+    mst_equal = {}
+    for norm in (False, True):
+        ncfg = dataclasses.replace(cfg, normalize_aggregation=norm)
+        kw = dict(max_neighbors=2, iterations=4, refine_start=2.0,
+                  init_state=(*planes, _seed_min_cost(vl, *planes, fa, ncfg)))
+        tag = "_norm" if norm else ""
+        k2 = 2 * (4 + norm)  # carry_iters 1: 2 scans of each kind a tree filter
+        want = timed(f"mesh_mst{tag}_single", lambda: mst_pms_optimize(kl, vl, fa, ncfg, **kw))
+        for path, fn in (
+                (f"mesh_mst_cand{tag}",
+                 lambda: mst_mesh.mst_pms_optimize_mesh(kl, vl, fa, cmesh, ncfg, **kw)),
+                (f"mesh_mst_node{tag}", lambda: mst_mesh.mst_pms_optimize_mesh_sharded(
+                    kl, mst_mesh.volume_in_node_order(vl, fa), fa, nmesh, ncfg, **kw))):
+            got = run(path, fn, {"K2": k2, "K2a": k2},
+                      f"4 iterations{' and the normalization' if norm else ''}: one tree filter "
+                      f"each")
+            mst_equal[path] = all(torch.equal(g, x) for g, x in zip(got, want))
+            if not mst_equal[path]:
+                raise AssertionError(f"{path} != mst_pms_optimize: max |diff| " + ", ".join(
+                    f"{(g - x).abs().max().item():.3g}" for g, x in zip(got, want)))
+    del vl, fa, planes, seed_l, bgr, bl, br
+    log(f"parallel: one NCCL rank ({dist.get_backend()}, world {dist.get_world_size()}); "
+        f"sgbm_batch_mesh 2x{h}x{w}x{sgbm_cfg.num_disp} bit-equal to sgbm_disparity; tiled vs "
+        f"whole shares beyond 0.02 px {json.dumps({k: round(v, 6) for k, v in shares.items()})}; "
+        f"wta_disparity_dslab bit-equal; sgbm_pipeline_mesh {bh}x{bw}x{bcfg.num_disp} vs the "
+        f"whole frame: beyond 1e-5 px or validity {jitter:.6f}, beyond 0.1 px {ties:.6f}, the "
+        f"integer gray's {exact:.6f}; the 3DMST meshes equal mst_pms_optimize: {mst_equal}")
+    log("parallel seconds " + json.dumps({k: round(v, 4) for k, v in secs.items()}))
+    log(f"parallel section wall time {time.perf_counter() - t_section:.1f} s")
     return launches
 
 
@@ -1498,9 +1673,14 @@ def main() -> int:
     band_launches, band_rows = banded_sgbm_path(band_scene, dev)
     by_path.update(band_launches)
     by_path.update(c2f_prior_paths(sc0, dev))
-    # last, the apps on files, stereo_test on the band scene
+    # the apps on files, stereo_test on the band scene
     by_path.update(apps_paths(band_scene, dev))
+    # last, parallel/ on one NCCL rank
+    by_path.update(parallel_paths(scenes, band_scene, cfg, dev))
     del band_scene
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the one-rank NCCL group the mesh paths started
 
     # the port imports nothing of jax and nothing of the JAX package
     from_jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "stereomatch_tpu"))

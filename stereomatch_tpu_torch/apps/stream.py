@@ -3,11 +3,11 @@
 
 The reference processes one hard-coded frame per run (stereo_opencv.cpp
 loads a single id). This app runs the whole bundled sequence
-(ids 20, 40, 60, 61, 80): `run` through the cost-volume pipeline, `run_mst`
-through the streaming 3DMST. The JAX package's `run` shards the batch over
-a device mesh ("frame" x "tile", parallel/tiled.py); on one card the port
-runs `pipelines.costvolume_pipeline` frame by frame with the same config,
-so maps may differ from the tiled pipeline's on tie flips (ROADMAP queue 3).
+(ids 20, 40, 60, 61, 80): `run` through the cost-volume pipeline split over
+a mesh of the process group's ranks, frames data-parallel over its "frame"
+axis and rows tiled over "tile" (parallel/tiled.py; one rank alone when no
+launcher started more, SURVEY.md §5's streaming-video config), and
+`run_mst` through the streaming 3DMST.
 """
 
 from __future__ import annotations
@@ -52,10 +52,20 @@ def run(
     """resume=True skips frames whose output PNG already exists — the
     streaming checkpoint/restart story (the per-frame artifacts ARE the
     checkpoints; a killed run restarts where it stopped). The reference
-    has no recovery at all (SURVEY §5). `n_frame` sizes the JAX package's
-    mesh and is not read on one card. Returns the (B, H, W) left maps."""
-    from ..pipelines import costvolume_pipeline
+    has no recovery at all (SURVEY §5). The mesh takes the process group's
+    ranks (one alone, `parallel.distributed_init` joins a torchrun world):
+    `n_frame` of them on the frame axis (default: half the ranks, at most
+    one a frame), the rest on the tile axis; rank 0 prints and writes the
+    maps. Returns the (B, H, W) left maps on every rank of the mesh (None
+    on a rank outside it)."""
+    import torch.distributed as dist
 
+    from ..parallel import make_mesh, tiled_cost_volume_batch
+    from ..parallel.mesh import process_group_device
+
+    process_group_device(device)  # a one-rank group when no launcher started more
+    world, lead = dist.get_world_size(), dist.get_rank() == 0
+    verbose = verbose and lead
     timer = StageTimer(verbose=verbose)
     if resume:
         remaining = _remaining(ids, out_dir, "stream_disp")
@@ -69,21 +79,37 @@ def run(
 
     cal = load_stereo_calibration(calib).rescaled(scale)
     geom = rectified_geometry(cal, (w, h))
-    with timer.stage("rectify batch"):
-        rect = [[x.cpu().numpy() for x in rectify_pair(l, r, geom, device)] for l, r in pairs]
+    rect = timer.time("rectify batch", lambda: [rectify_pair(l, r, geom, device) for l, r in pairs])
 
+    nf = n_frame or max(1, min(len(ids), world // 2))
+    nt = max(1, world // nf)
+    mesh = make_mesh(n_tile=nt, n_frame=nf, device=device)
+    if verbose:
+        print(f"mesh: frame={nf} x tile={nt} over {nf * nt} ranks")
     cfg = CostVolumePipelineConfig(
         volume=CostVolumeConfig(min_disp=0, max_disp=max_disp),
         guided=GuidedFilterConfig(slab=16),
     )
-    with timer.stage("pipeline batch"):
-        dl = np.stack([costvolume_pipeline(l, r, cfg, device=device)[0] for l, r in rect])
+    fn = tiled_cost_volume_batch(mesh, cfg)
 
-    os.makedirs(out_dir, exist_ok=True)
-    for fid, disp in zip(ids, dl):
-        save_disparity_png(
-            os.path.join(out_dir, f"stream_disp_{fid:06d}.png"), disp, max_disp
-        )
+    # BGR batches, padded to a multiple of the frame axis and the rows to
+    # one of the tile axis
+    b = len(rect)
+    pad = (0, 0, 0, 0, 0, (-h) % nt, 0, (-b) % nf)
+    lb, rb = (torch.nn.functional.pad(torch.stack([p[i] for p in rect]).flip(-1), pad)
+              for i in (0, 1))
+    with timer.stage("pipeline batch"):
+        out = fn(lb, rb)
+        dl = None if out is None else out[0][:b, :h].cpu().numpy()
+    if dl is None:  # a rank outside the mesh
+        return None
+
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
+        for fid, disp in zip(ids, dl):
+            save_disparity_png(
+                os.path.join(out_dir, f"stream_disp_{fid:06d}.png"), disp, max_disp
+            )
     if verbose:
         print(timer.report())
         print(f"wrote {len(ids)} disparity maps to {out_dir}")

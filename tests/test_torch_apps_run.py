@@ -8,9 +8,10 @@ ground truth holds; the distorted rig (XML) makes the remap warp.
 Tolerances, as the port test of each engine holds it: SGBM on float luma
 99% of pixels within 1e-4 px; the 3DMST maps 95% within 0.1 px; the
 cost-volume stream, which the JAX package runs tiled over a mesh of 8
-virtual CPU devices and the port frame by frame, as tests/test_parallel.py
-holds the tiled pipeline to the whole frame: at most 1% of pixels differ
-by more than 0.02 px.
+virtual CPU devices and the port over its process group's ranks (one here,
+two in a spawned gloo world), as tests/test_parallel.py holds the tiled
+pipeline to the whole frame: at most 1% of pixels differ by more than
+0.02 px.
 
 Measured on the CPU: stereo_test within 1.6e-5 px everywhere (91% bit for
 bit, identity and distorted rigs); stereo_yin within 4e-4 px on both
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_ranks
 from chip_smoke import (
     distorted_calibration, identity_calibration, write_calibration, write_frame_pair,
 )
@@ -35,6 +37,7 @@ from stereomatch_tpu_torch.apps import stereo_yin as tsy
 from stereomatch_tpu_torch.apps import stream as tstream
 from stereomatch_tpu_torch.eval import disparity_metrics
 from stereomatch_tpu_torch.io import save_mccnn_volume
+from stereomatch_tpu_torch.parallel.launch import spawn
 from stereomatch_tpu_torch.synthetic import render_scene, render_sequence, scene_eval_mask
 
 
@@ -149,6 +152,26 @@ def test_stream_run_matches_jax_by_share(stream_dirs, tmp_path):
     again = tstream.run(d, cal, str(tmp_path / "t"), ids=(20, 40), scale=1.0, max_disp=15,
                         verbose=False, resume=True, device="cpu")
     assert again.size == 0  # every frame done: nothing recomputed
+
+
+def test_stream_run_on_two_ranks_matches_one(stream_dirs, tmp_path):
+    """stream.run on a spawned 2-rank gloo world (frame 1 x tile 2: two row
+    tiles of 48 rows with their halos) against its run alone (one tile),
+    held as tests/test_parallel.py holds the tiled pipeline to the whole
+    frame: at most 1% of pixels beyond 0.02 px. Both ranks return the
+    maps; rank 0 alone writes them. The world's deadline is 120 s."""
+    _, d = stream_dirs
+    cal = os.path.join(d, "identity.yml")
+    kw = dict(ids=(20, 40), scale=1.0, max_disp=15, verbose=False)
+    one = tstream.run(d, cal, str(tmp_path / "one"), device="cpu", **kw)
+    world = spawn(torch_mesh_ranks.stream_world, 2, d, cal, str(tmp_path / "two"), kw,
+                  timeout=120.0)
+    two = world["dl"].numpy()
+    assert int(world["ranks/dl"]) == 2
+    assert two.shape == one.shape == (2, 96, 128) and np.isfinite(two).all()
+    assert np.mean(np.abs(two - one) > 0.02) <= 0.01
+    assert sorted(os.listdir(tmp_path / "two")) == ["stream_disp_000020.png",
+                                                    "stream_disp_000040.png"]
 
 
 @pytest.mark.parametrize("mode", ["host", "video_device"])
