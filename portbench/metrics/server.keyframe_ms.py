@@ -1,0 +1,11 @@
+"""server.keyframe_ms: median latency (ms) of the window's keyframes, the
+frames that build the SGBM seed and both forests. A stateful mix only."""
+
+from portbench.yardstick import median
+
+
+def read(run):
+    if not run.mix["stateful"]:
+        return None
+    lat = [f["latency_s"] for f in run.frames if f["is_key"]]
+    return median(lat) * 1e3 if lat else None
