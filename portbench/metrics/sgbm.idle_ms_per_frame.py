@@ -1,0 +1,8 @@
+"""sgbm.idle_ms_per_frame: device idle ms a traced frame while the host's
+innermost program span is `sm.sgbm` or one of its parts."""
+
+from portbench.spans import idle_ms_per_frame
+
+
+def read(run):
+    return idle_ms_per_frame(run, "sgbm", "sm.sgbm")

@@ -203,7 +203,7 @@ def run_mst(
             fa_l, fa_r = futs.pop(i).result()
             waits.append(time.time() - t0)
             bl, br = frames[i]
-            with timer.stage(f"frame {fid} device"):
+            with timer.stage("frame device"):
                 lv, rv = builtin_cost_volumes(bl.flip(-1), br.flip(-1), max_disp)
                 kl, kr = trandom.split(trandom.PRNGKey(int(fid), device))
                 if sgbm_seed:

@@ -22,6 +22,7 @@ from ..ops.mst import labels_to_disparity, mst_pms_optimize, plane_labels_from_d
 from ..ops.postprocess import nearest_valid_fill
 from ..ops.segmentation import channel_l1
 from ..ops.sgbm import sgbm_disparity
+from ..utils.timing import span
 from .mst import MSTOutput, _fused_capacities, _lr_checked, _seed_min_cost, mst_stereo_seeded
 
 __all__ = [
@@ -45,16 +46,17 @@ def _seed_pair(gl: torch.Tensor, gr: torch.Tensor, cfg: SGBMConfig, right_seed: 
     """(left, right) SGBM disparities with invalid pixels filled.
     "disp2": the right map is the free min-cost projection of the same
     aggregated volume; "mirror": a second SGBM on the mirrored swapped pair."""
-    out_l = sgbm_disparity(gl, gr, cfg)
-    dl = nearest_valid_fill(out_l.disparity, out_l.valid)
-    if right_seed == "disp2" and out_l.right_disparity is not None:
-        rd = out_l.right_disparity
-        dr = nearest_valid_fill(rd, rd > cfg.min_disp - 0.5)
-    elif right_seed in ("mirror", "disp2"):
-        out_r = sgbm_disparity(gr.flip(1), gl.flip(1), cfg)
-        dr = nearest_valid_fill(out_r.disparity, out_r.valid).flip(1)
-    else:
-        raise ValueError(f"right_seed must be 'disp2' or 'mirror', got {right_seed!r}")
+    with span("sm.sgbm"):
+        out_l = sgbm_disparity(gl, gr, cfg)
+        dl = nearest_valid_fill(out_l.disparity, out_l.valid)
+        if right_seed == "disp2" and out_l.right_disparity is not None:
+            rd = out_l.right_disparity
+            dr = nearest_valid_fill(rd, rd > cfg.min_disp - 0.5)
+        elif right_seed in ("mirror", "disp2"):
+            out_r = sgbm_disparity(gr.flip(1), gl.flip(1), cfg)
+            dr = nearest_valid_fill(out_r.disparity, out_r.valid).flip(1)
+        else:
+            raise ValueError(f"right_seed must be 'disp2' or 'mirror', got {right_seed!r}")
     return dl, dr
 
 
@@ -71,15 +73,16 @@ def _view_forest(bgr: torch.Tensor, cfg: MSTConfig, tmax: int, adj_cap: int) -> 
     Returns build_forest_device's raw dict, its capacities checked here,
     once: the build waits on the host every round anyway, and a forest the
     video server chains into later frames is then used without a sync."""
-    img = median3x3(bgr) if cfg.median_prefilter else bgr
-    im = img if img.ndim == 3 else img[..., None]
-    wr = channel_l1(im[:, 1:] - im[:, :-1])
-    wd = channel_l1(im[1:] - im[:-1])
-    raw = build_forest_device(
-        wr, wd, c=cfg.c, min_size=cfg.min_cc_size, gamma=cfg.gamma,
-        delta=cfg.max_log_range, tmax=tmax, adj_cap=adj_cap,
-    )
-    check_forest_capacity(raw, tmax)
+    with span("sm.forest"):
+        img = median3x3(bgr) if cfg.median_prefilter else bgr
+        im = img if img.ndim == 3 else img[..., None]
+        wr = channel_l1(im[:, 1:] - im[:, :-1])
+        wd = channel_l1(im[1:] - im[:-1])
+        raw = build_forest_device(
+            wr, wd, c=cfg.c, min_size=cfg.min_cc_size, gamma=cfg.gamma,
+            delta=cfg.max_log_range, tmax=tmax, adj_cap=adj_cap,
+        )
+        check_forest_capacity(raw, tmax)
     return raw
 
 
@@ -89,16 +92,17 @@ def _refine_view_given_forest(raw, vol, seed_disp, k, cfg: MSTConfig, h: int, w:
     """Plane-fit seed labels + truncated-ladder refinement on a built forest
     (raw, from _view_forest: possibly a previous keyframe's); returns the
     (H, W) disparity in pixels. Enqueues without a host sync."""
-    span = float(cfg.max_disp - 1)
-    vol = vol.to(getattr(torch, cfg.volume_dtype))
-    fa = device_forest_arrays(raw, h, w, tmax=tmax, check=False)
-    a0, b0, c0 = plane_labels_from_disparity(torch.clamp(seed_disp, 0.0, span), fa)
-    mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
-    a, b, c, _ = mst_pms_optimize(
-        k, vol, fa, cfg, max_neighbors=max_neighbors, iterations=fine_iterations,
-        init_state=(a0, b0, c0, mc0), refine_start=refine_start,
-    )
-    return labels_to_disparity(a, b, c, fa, cfg.max_disp) * span
+    top = float(cfg.max_disp - 1)
+    with span("sm.refine"):
+        vol = vol.to(getattr(torch, cfg.volume_dtype))
+        fa = device_forest_arrays(raw, h, w, tmax=tmax, check=False)
+        a0, b0, c0 = plane_labels_from_disparity(torch.clamp(seed_disp, 0.0, top), fa)
+        mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
+        a, b, c, _ = mst_pms_optimize(
+            k, vol, fa, cfg, max_neighbors=max_neighbors, iterations=fine_iterations,
+            init_state=(a0, b0, c0, mc0), refine_start=refine_start,
+        )
+        return labels_to_disparity(a, b, c, fa, cfg.max_disp) * top
 
 
 def _fused_refine_view(bgr, vol, seed_disp, k, cfg: MSTConfig, h: int, w: int, tmax: int,
@@ -169,10 +173,10 @@ def sgbm_mst_stereo(
     if sgbm_cfg is None:
         sgbm_cfg = _default_sgbm_cfg(cfg)
     dl, dr = sgbm_seed_disparities(left_bgr, right_bgr, sgbm_cfg, right_seed, device)
-    span = float(cfg.max_disp - 1)
+    top = float(cfg.max_disp - 1)
     return mst_stereo_seeded(
-        left_bgr, right_bgr, left_vol, right_vol, torch.clamp(dl, 0.0, span),
-        torch.clamp(dr, 0.0, span), cfg, seed=seed, fine_iterations=fine_iterations,
+        left_bgr, right_bgr, left_vol, right_vol, torch.clamp(dl, 0.0, top),
+        torch.clamp(dr, 0.0, top), cfg, seed=seed, fine_iterations=fine_iterations,
         refine_start=refine_start, max_neighbors=max_neighbors, device=device,
     )
 
@@ -229,11 +233,11 @@ def mst_stereo_temporal_fused(
     right_bgr = _on(right_bgr, device, torch.float32)
     h, w = left_bgr.shape[:2]
     tmax, adj_cap = _fused_capacities(h, w, cfg)
-    span = float(cfg.max_disp - 1)
+    top = float(cfg.max_disp - 1)
     disp_l, disp_r = _mst_refine_frame_fused(
         left_bgr, right_bgr, _on(left_vol, device), _on(right_vol, device),
-        torch.clamp(_on(prev_left_disp, device), 0.0, span),
-        torch.clamp(_on(prev_right_disp, device), 0.0, span),
+        torch.clamp(_on(prev_left_disp, device), 0.0, top),
+        torch.clamp(_on(prev_right_disp, device), 0.0, top),
         trandom.PRNGKey(seed, device), cfg, fine_iterations, refine_start, max_neighbors,
         h, w, tmax, adj_cap,
     )
@@ -261,7 +265,7 @@ def sgbm_mst_video(
     nearest-valid filled, and the dense right map, both clipped to
     [0, max_disp-1], with `temporal_iterations` (default:
     `fine_iterations`) refinements. Frame i uses seed + i."""
-    span = float(cfg.max_disp - 1)
+    top = float(cfg.max_disp - 1)
     ti = fine_iterations if temporal_iterations is None else temporal_iterations
     outs: list[MSTOutput] = []
     prev: MSTOutput | None = None
@@ -273,8 +277,8 @@ def sgbm_mst_video(
                 device=device,
             )
         else:
-            seed_l = torch.clamp(nearest_valid_fill(prev.left_disp, prev.left_valid), 0.0, span)
-            seed_r = torch.clamp(prev.right_disp, 0.0, span)
+            seed_l = torch.clamp(nearest_valid_fill(prev.left_disp, prev.left_valid), 0.0, top)
+            seed_r = torch.clamp(prev.right_disp, 0.0, top)
             out = mst_stereo_seeded(
                 lb, rb, lv, rv, seed_l, seed_r, cfg, seed=seed + i, fine_iterations=ti,
                 refine_start=refine_start, max_neighbors=max_neighbors, device=device,

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import span
 from .mst import ForestArrays
 from .segmentation import (
     _BIG_RANK,
@@ -63,20 +64,21 @@ def _component_mst(lab, ea, eb, ew, n: int, rank_tables, hw):
     tree = torch.zeros(e, dtype=torch.bool, device=dev)
     cap = ceil_log2(n) + 1
     for _ in range(cap):
-        ra, rb = _at_ea(parent, h, w), _at_eb(parent, h, w)
-        ok = same & (ra != rb)
-        best_r = _min_rank_at_roots(n, ra, rb, torch.where(ok, rank, big))
-        has = best_r < _BIG_RANK
-        be = eid_by_rank[best_r.clamp(0, e - 1)]
-        ra_e, rb_e = ra[be], rb[be]
-        other = torch.where(ra_e == me, rb_e, ra_e)
-        mutual = other[other.clamp(0, n - 1)] == me
-        hooked = has & (parent == me) & ~(mutual & (me < other))
-        # the hooking root's chosen edge is in the MST (cut property)
-        tree[be[hooked]] = True
-        parent = _compress_conv(torch.where(hooked, other, parent))
-        if not bool(hooked.any()):
-            return tree
+        with span("sm.forest.round"):
+            ra, rb = _at_ea(parent, h, w), _at_eb(parent, h, w)
+            ok = same & (ra != rb)
+            best_r = _min_rank_at_roots(n, ra, rb, torch.where(ok, rank, big))
+            has = best_r < _BIG_RANK
+            be = eid_by_rank[best_r.clamp(0, e - 1)]
+            ra_e, rb_e = ra[be], rb[be]
+            other = torch.where(ra_e == me, rb_e, ra_e)
+            mutual = other[other.clamp(0, n - 1)] == me
+            hooked = has & (parent == me) & ~(mutual & (me < other))
+            # the hooking root's chosen edge is in the MST (cut property)
+            tree[be[hooked]] = True
+            parent = _compress_conv(torch.where(hooked, other, parent))
+            if not bool(hooked.any()):
+                return tree
     raise RuntimeError(f"component MST did not converge in {cap} rounds")
 
 
@@ -159,12 +161,13 @@ def _euler_tour(tree_edge, lab, ea, eb, h: int, w: int):
     ccnt[cpos[live]] = 1
     v, p = ccnt, cnxt
     for _ in range(ceil_log2(m) + 1):  # the JAX loop's own bound
-        has = p >= 0
-        if not bool(has.any()):
-            break
-        pc = p.clamp(0, m - 1)
-        v = v + torch.where(has, v[pc], 0)
-        p = torch.where(has, p[pc], -1)
+        with span("sm.forest.round"):
+            has = p >= 0
+            if not bool(has.any()):
+                break
+            pc = p.clamp(0, m - 1)
+            v = v + torch.where(has, v[pc], 0)
+            p = torch.where(has, p[pc], -1)
     else:
         if bool((p >= 0).any()):
             raise RuntimeError("Wyllie list ranking did not converge")
@@ -199,10 +202,11 @@ def _ancestor_doubling(parent: torch.Tensor, d_int: torch.Tensor, gd: torch.Tens
     anc = parent
     cap = ceil_log2(parent.shape[0]) + 1
     for _ in range(cap):
-        anc2 = anc[anc]
-        d_int = d_int + d_int[anc]
-        gd = gd + gd[anc]
-        done = torch.equal(anc2, anc)
+        with span("sm.forest.round"):
+            anc2 = anc[anc]
+            d_int = d_int + d_int[anc]
+            gd = gd + gd[anc]
+            done = torch.equal(anc2, anc)
         anc = anc2
         if done:
             return d_int, gd

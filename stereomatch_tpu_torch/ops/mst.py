@@ -25,6 +25,7 @@ import torch
 
 from ..config import MSTConfig
 from .. import random as trandom
+from ..utils.timing import span
 from .mst_scan_cuda import ancestor_sums, segmented_cumsum
 
 __all__ = [
@@ -404,23 +405,26 @@ def mst_pms_optimize(
         return agg if inv_norm is None else agg * inv_norm
 
     for key_i in trandom.split(key, iters):
-        cand = make_candidate_fn(key_i, a, b, c, f, max_disp, max_neighbors, deltas_d, deltas_n)
-        params = [cand(j) for j in range(k_total)]
-        ka_, kb_, kc_ = (torch.stack([p[i] for p in params]) for i in range(3))
-        chunk = k_total if candidate_chunk is None else min(candidate_chunk, k_total)
-        best_agg = best_k = None
-        for j0 in range(0, k_total, chunk):
-            agg = eval_block(ka_[j0 : j0 + chunk], kb_[j0 : j0 + chunk], kc_[j0 : j0 + chunk])
-            lc, lk = agg.amin(0), torch.argmin(agg, 0) + j0
-            if best_agg is None:
-                best_agg, best_k = lc, lk
-            else:  # strict: the first (smallest-j) minimum wins
-                better_c = lc < best_agg
-                best_agg = torch.where(better_c, lc, best_agg)
-                best_k = torch.where(better_c, lk, best_k)
-        better = best_agg < mc
-        a = torch.where(better, ka_[best_k, f.tree_id], a)
-        b = torch.where(better, kb_[best_k, f.tree_id], b)
-        c = torch.where(better, kc_[best_k, f.tree_id], c)
-        mc = torch.where(better, best_agg, mc)
+        with span("sm.refine.iter"):
+            cand = make_candidate_fn(key_i, a, b, c, f, max_disp, max_neighbors, deltas_d,
+                                     deltas_n)
+            params = [cand(j) for j in range(k_total)]
+            ka_, kb_, kc_ = (torch.stack([p[i] for p in params]) for i in range(3))
+            chunk = k_total if candidate_chunk is None else min(candidate_chunk, k_total)
+            best_agg = best_k = None
+            for j0 in range(0, k_total, chunk):
+                agg = eval_block(ka_[j0 : j0 + chunk], kb_[j0 : j0 + chunk],
+                                 kc_[j0 : j0 + chunk])
+                lc, lk = agg.amin(0), torch.argmin(agg, 0) + j0
+                if best_agg is None:
+                    best_agg, best_k = lc, lk
+                else:  # strict: the first (smallest-j) minimum wins
+                    better_c = lc < best_agg
+                    best_agg = torch.where(better_c, lc, best_agg)
+                    best_k = torch.where(better_c, lk, best_k)
+            better = best_agg < mc
+            a = torch.where(better, ka_[best_k, f.tree_id], a)
+            b = torch.where(better, kb_[best_k, f.tree_id], b)
+            c = torch.where(better, kc_[best_k, f.tree_id], c)
+            mc = torch.where(better, best_agg, mc)
     return a, b, c, mc

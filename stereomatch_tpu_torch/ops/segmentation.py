@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from ..utils.timing import span
+
 __all__ = ["boruvka_segment", "segment_image"]
 
 _BIG_RANK = 2**30
@@ -57,10 +59,11 @@ def _pointer_jump_conv(parent: torch.Tensor) -> torch.Tensor:
     cap = ceil_log2(parent.shape[0]) + 1
     p = parent
     for _ in range(cap):
-        p2 = p[p]
-        if torch.equal(p2, p):
-            return p2
-        p = p2
+        with span("sm.forest.round"):
+            p2 = p[p]
+            if torch.equal(p2, p):
+                return p2
+            p = p2
     raise RuntimeError(f"pointer jumping did not converge in {cap} rounds")
 
 
@@ -130,7 +133,8 @@ def boruvka_segment(
     parent, size, wint = me, torch.ones(n, dtype=torch.int64, device=dev), torch.zeros(n, device=dev)
     for gate, max_rounds in ((True, rounds), (False, merge_rounds)):
         for _ in range(max_rounds):
-            parent, size, wint, hooked_any = do_round(parent, size, wint, gate)
+            with span("sm.forest.round"):
+                parent, size, wint, hooked_any = do_round(parent, size, wint, gate)
             if not hooked_any:
                 break
     return parent.reshape(h, w)

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SGBMConfig
+from ..utils.timing import span
 from .cost import shifted_stack
 from .filters import box_filter_sum
 
@@ -370,20 +371,22 @@ def sgbm_disparity_banded(
     up_in = [zero] * nbands  # up_in[b]: the upward carry entering band b from below
     if use_up:
         for b in range(nbands - 1, 0, -1):
-            up_in[b - 1] = torch.empty_like(zero)
-            aggregate_paths_cuda(cost(b), p1, p2, dirs[ndir:2 * ndir], up_in[b], up_in[b - 1],
-                                 with_s=False)
+            with span("sm.sgbm.band_up"):
+                up_in[b - 1] = torch.empty_like(zero)
+                aggregate_paths_cuda(cost(b), p1, p2, dirs[ndir:2 * ndir], up_in[b],
+                                     up_in[b - 1], with_s=False)
 
     down = zero
     outs, valids, rdisps = [], [], []
     for b in range(nbands):
-        carry_in = torch.cat([down, up_in[b]]) if use_up else down
-        carry_out = carry_in.new_empty((carried, w, nd))
-        s = aggregate_paths_cuda(cost(b), p1, p2, dirs, carry_in, carry_out)
-        down = carry_out[:ndir]
-        up_in[b] = None  # read once
-        out_b, valid_b, rdisp_b = _select_from_aggregated(s, cfg, margin, w_full)
-        del s
+        with span("sm.sgbm.band"):
+            carry_in = torch.cat([down, up_in[b]]) if use_up else down
+            carry_out = carry_in.new_empty((carried, w, nd))
+            s = aggregate_paths_cuda(cost(b), p1, p2, dirs, carry_in, carry_out)
+            down = carry_out[:ndir]
+            up_in[b] = None  # read once
+            out_b, valid_b, rdisp_b = _select_from_aggregated(s, cfg, margin, w_full)
+            del s
         outs.append(out_b)
         valids.append(valid_b)
         rdisps.append(rdisp_b)

@@ -12,6 +12,7 @@ import torch
 from .config import (
     BMConfig, CensusConfig, CostVolumePipelineConfig, MSTConfig, PatchMatchConfig, SGBMConfig,
 )
+from .utils.timing import span
 
 __all__ = [
     "SGBM_BAND_THRESHOLD_BYTES",
@@ -123,15 +124,21 @@ def sgbm_pipeline(left, right, cfg: SGBMConfig = SGBMConfig(), speckle: bool = T
     float32 disparity; invalid pixels = cfg.min_disp - 1."""
     from .ops.sgbm import sgbm_disparity, sgbm_disparity_banded
 
-    check_stereo_pair(left, right)
-    gl, gr = _gray255(left, device), _gray255(right, device)
-    if gl.shape[0] * gl.shape[1] * cfg.num_disp * 4 > SGBM_BAND_THRESHOLD_BYTES:
-        disp = sgbm_disparity_banded(gl, gr, cfg, device=device).disparity
-    else:
-        disp = sgbm_disparity(gl, gr, cfg).disparity
-    if speckle and cfg.speckle_window_size > 0:
-        disp = _filter_speckles(disp, cfg)
-    return disp.cpu().numpy()
+    with span("sm.sgbm"):
+        check_stereo_pair(left, right)
+        with span("sm.sgbm.gray"):
+            gl = _gray255(left, device)
+        with span("sm.sgbm.gray"):
+            gr = _gray255(right, device)
+        if gl.shape[0] * gl.shape[1] * cfg.num_disp * 4 > SGBM_BAND_THRESHOLD_BYTES:
+            disp = sgbm_disparity_banded(gl, gr, cfg, device=device).disparity
+        else:
+            disp = sgbm_disparity(gl, gr, cfg).disparity
+        if speckle and cfg.speckle_window_size > 0:
+            with span("sm.sgbm.speckle"):
+                disp = _filter_speckles(disp, cfg)
+        with span("sm.sgbm.to_host"):
+            return disp.cpu().numpy()
 
 
 def _volumes(left, right, left_vol, right_vol, max_disp: int, device):

@@ -1,5 +1,6 @@
 """Where a served frame's time goes: sequential and pipelined frame times,
-a `torch.profiler` trace of one frame per volume mode, and stage times.
+and a `torch.profiler` trace of one frame per volume mode, read by the
+program's own spans.
 
     python3 -m stereomatch_tpu_torch.profile_server [--out FILE] [--video]
 
@@ -9,16 +10,18 @@ At the default size (960x1280, 128 disparities, the production frame of
 time (submit -> collect, host clock), then the same frames pipelined
 (`capacity=2`: submit all, then drain), then one frame under the profiler.
 From the trace it reports the frame's device events, their summed device
-time, the union of their intervals (the time the device was busy), and the
-top kernels by device time. Last, each stage of one guided frame runs 3
-times, timed on the host clock around `torch.cuda.synchronize()`.
+time, the union of their intervals (the time the device was busy), the
+top kernels by device time, and a table of the program's spans
+(`utils.timing.span`): for each span name, its host self time (the span's
+time not inside a nested span), the kernel launches and host syncs the
+runtime made with it as the innermost span, and the device's idle time
+while it was. The rules are those of the benchmark's `portbench/spans.py`.
 
 `--video` does the same for the steady-state temporal frame of the video
 server's headline deployment (`compile_mst_video_server` with the raw
 volume and `reuse_forest`): after the keyframe and one warm-up temporal
 frame, every frame it serves and traces is a temporal frame, which
-refines on the keyframe's forests and builds none. Its stage times are the
-raw cost volumes and one view's 2-iteration refine on a built forest.
+refines on the keyframe's forests and builds none.
 
 A summary goes to stdout; everything, with the top kernels, goes to
 `--out` as JSON. `--device cpu` with a small `--shape` rehearses the script
@@ -31,12 +34,16 @@ import argparse
 import json
 import subprocess
 import time
+from bisect import bisect_right
+from collections import defaultdict
 from pathlib import Path
 
 import torch
 
 TOP = 25
 FRAMES = 3
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
 def _sync(dev: torch.device) -> None:
@@ -59,6 +66,73 @@ def _busy_us(intervals) -> float:
             busy += e - max(s, end)
             end = e
     return busy
+
+
+def _innermost(spans) -> list[tuple[float, float, str]]:
+    """The timeline of (start, end, name) spans cut into disjoint pieces,
+    each named by the shortest span that holds it."""
+    events = sorted(ev for i, (s, e, _) in enumerate(spans) if e > s
+                    for ev in ((s, 1, i), (e, 0, i)))
+    out, active, prev = [], set(), None
+    for t, starts, i in events:
+        if active and t > prev:
+            j = min(active, key=lambda k: (spans[k][1] - spans[k][0], k))
+            out.append((prev, t, spans[j][2]))
+        prev = t
+        (active.add if starts else active.discard)(i)
+    return out
+
+
+def span_table(prof) -> dict:
+    """Per span name: how many, host self ms, launches and syncs charged at
+    their start to it as the innermost span, and device idle ms under it
+    (None: in no span)."""
+    from torch.autograd import DeviceType
+
+    host, device = [], []
+    for e in prof.events():
+        row = (e.name, e.time_range.start, e.time_range.end)
+        (device if e.device_type == DeviceType.CUDA else host).append(row)
+    spans = sorted((s, e, n) for n, s, e in host if n.startswith("sm."))
+    pieces = _innermost(spans)
+    starts = [s for s, _, _ in pieces]
+
+    def at(t):
+        k = bisect_right(starts, t) - 1
+        return pieces[k][2] if k >= 0 and t < pieces[k][1] else None
+
+    table = defaultdict(lambda: {"count": 0, "self_ms": 0.0, "launches": 0, "syncs": 0,
+                                 "idle_ms": 0.0})
+    for _, _, n in spans:
+        table[n]["count"] += 1
+    for s, e, n in pieces:
+        table[n]["self_ms"] += (e - s) / 1e3
+    for n, s, _ in host:
+        if n in LAUNCHES:
+            table[at(s)]["launches"] += 1
+        elif n in SYNCS:
+            table[at(s)]["syncs"] += 1
+    if device and host:
+        # each idle gap of the device, split over the innermost spans
+        end = min(s for _, s, _ in host)
+        gaps = []
+        for s, e in sorted((s, e) for _, s, e in device):
+            if s > end:
+                gaps.append((end, s))
+            end = max(end, e)
+        gaps.append((end, max(e for _, _, e in host)))
+        for a, b in gaps:
+            covered = 0.0
+            for s, e, n in pieces[max(bisect_right(starts, a) - 1, 0):]:
+                if s >= b:
+                    break
+                overlap = min(e, b) - max(s, a)
+                if overlap > 0:
+                    table[n]["idle_ms"] += overlap / 1e3
+                    covered += overlap
+            if b - a > covered:
+                table[None]["idle_ms"] += (b - a - covered) / 1e3
+    return {str(k): v for k, v in sorted(table.items(), key=lambda kv: -kv[1]["self_ms"])}
 
 
 def profile_mode(srv, warm, seq_frames, pipe_frames, prof_frame, dev) -> dict:
@@ -102,80 +176,8 @@ def profile_mode(srv, warm, seq_frames, pipe_frames, prof_frame, dev) -> dict:
         "launches_of_kernels_run_over_3000_times": sum(e.count for e in kernels if e.count > 3000),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in top[:TOP]],
+        "spans": span_table(prof),
     }
-
-
-def _timer(dev, out: dict, ms: dict):
-    def timed(name, fn, reps=3):
-        ms[name] = []
-        for _ in range(reps):
-            _sync(dev)
-            t0 = time.perf_counter()
-            out[name] = fn()
-            _sync(dev)
-            ms[name].append((time.perf_counter() - t0) * 1e3)
-    return timed
-
-
-def video_stage_times(scenes, cfg, dev) -> dict:
-    """The temporal frame's stages: raw cost volumes, then one view's
-    refine on the keyframe's forest, seeded with the keyframe's map."""
-    from .apps.stereo_yin import builtin_cost_volumes
-    from .models.mst import _fused_capacities
-    from .models.sgbm_mst import _refine_view_given_forest, _view_forest
-    from . import random as trandom
-
-    h, w = scenes[0].left.shape[:2]
-    left0 = torch.from_numpy(scenes[0].left).to(dev).float()
-    left1 = torch.from_numpy(scenes[1].left).to(dev).float()
-    right1 = torch.from_numpy(scenes[1].right).to(dev).float()
-    tmax, adj_cap = _fused_capacities(h, w, cfg)
-    forest = _view_forest(left0, cfg, tmax, adj_cap)
-    seed = torch.from_numpy(scenes[0].disp_left).to(dev)
-    out, ms = {}, {}
-    timed = _timer(dev, out, ms)
-    timed("cost_volumes_raw", lambda: builtin_cost_volumes(
-        left1.flip(-1), right1.flip(-1), cfg.max_disp, guided=False))
-    kl = trandom.split(trandom.PRNGKey(1, dev))[0]
-    timed("temporal_refine_left", lambda: _refine_view_given_forest(
-        forest, out["cost_volumes_raw"][0], seed, kl, cfg, h, w, tmax, 2, 4.0, 2))
-    return {"stages_ms": ms}
-
-
-def stage_times(scene, cfg, dev) -> dict:
-    from .apps.stereo_yin import builtin_cost_volumes
-    from .models.mst import _fused_capacities
-    from .models.sgbm_mst import (
-        _default_sgbm_cfg, _gray_from_bgr, _refine_view_given_forest, _seed_pair, _view_forest,
-    )
-    from . import random as trandom
-
-    h, w = scene.left.shape[:2]
-    d = cfg.max_disp
-    left = torch.from_numpy(scene.left).to(dev).float()
-    right = torch.from_numpy(scene.right).to(dev).float()
-    sgbm_cfg = _default_sgbm_cfg(cfg)
-    tmax, adj_cap = _fused_capacities(h, w, cfg)
-    out, ms = {}, {}
-    timed = _timer(dev, out, ms)
-    timed("cost_volumes_guided", lambda: builtin_cost_volumes(
-        left.flip(-1), right.flip(-1), d, guided=True))
-    timed("cost_volumes_raw", lambda: builtin_cost_volumes(
-        left.flip(-1), right.flip(-1), d, guided=False))
-    timed("sgbm_seed_pair", lambda: _seed_pair(
-        _gray_from_bgr(left), _gray_from_bgr(right), sgbm_cfg))
-    timed("forest_left", lambda: _view_forest(left, cfg, tmax, adj_cap))
-    timed("forest_right", lambda: _view_forest(right, cfg, tmax, adj_cap))
-    (vl, vr), (sl, sr) = out["cost_volumes_guided"], out["sgbm_seed_pair"]
-    kl, kr = trandom.split(trandom.PRNGKey(0, dev))
-    timed("refine_left", lambda: _refine_view_given_forest(
-        out["forest_left"], vl, sl, kl, cfg, h, w, tmax, 4, 2.0, 2))
-    timed("refine_right", lambda: _refine_view_given_forest(
-        out["forest_right"], vr, sr, kr, cfg, h, w, tmax, 4, 2.0, 2))
-    forest = out["forest_left"]
-    return {"stages_ms": ms, "forest_left": {
-        "trees": int(forest["num_trees_actual"]), "segments": int(forest["seg_root"].sum()),
-        "tree_capacity": tmax}}
 
 
 def main(argv=None) -> int:
@@ -217,7 +219,6 @@ def main(argv=None) -> int:
         if srv._since_key != n:
             raise AssertionError("a frame after the keyframe was not a temporal frame")
         modes = ["video_temporal"]
-        report.update(video_stage_times(scenes, cfg, dev))
     else:
         scenes = render_sequence(0, FRAMES, h, w, d)
         for mode in ("guided", "raw"):
@@ -225,11 +226,11 @@ def main(argv=None) -> int:
                                           volume_guided=(mode == "guided"))
             report[mode] = profile_mode(srv, scenes[:1], scenes, scenes, scenes[1], dev)
         modes = ["guided", "raw"]
-        report.update(stage_times(scenes[0], cfg, dev))
     for mode in modes:
-        summary = {k: v for k, v in report[mode].items() if k != "top_kernels"}
+        summary = {k: v for k, v in report[mode].items() if k not in ("top_kernels", "spans")}
         print(mode, json.dumps(summary), flush=True)
-    print("stages_ms", json.dumps(report["stages_ms"]), flush=True)
+        for name, row in report[mode]["spans"].items():
+            print(f"  {name:22s} {json.dumps(row)}", flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.timing import span
+
 __all__ = ["PRNGKey", "split", "fold_in", "uniform", "threefry2x32"]
 
 _M32 = 0xFFFFFFFF
@@ -56,24 +58,27 @@ def PRNGKey(seed: int, device: torch.device | str = "cuda") -> torch.Tensor:
         raise ValueError(f"seed {seed} does not fit int32 (jax's default seed type)")
     # device fills: a host-to-device copy of the seed (as `key[1] = seed`
     # makes on the card) would sync the stream
-    key = torch.zeros(2, dtype=torch.int64, device=device)
-    key[1:].fill_(seed & _M32)
+    with span("sm.rng"):
+        key = torch.zeros(2, dtype=torch.int64, device=device)
+        key[1:].fill_(seed & _M32)
     return key
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """(num, 2) subkeys; index or unpack the first axis."""
-    lo = torch.arange(num, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-    return torch.stack([y0, y1], dim=-1)
+    with span("sm.rng"):
+        lo = torch.arange(num, dtype=torch.int64, device=key.device)
+        y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+        return torch.stack([y0, y1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """Key derived from `key` and a 32-bit Python integer."""
     # a device fill: a host-to-device copy of `data` would sync the stream
-    d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
-    return torch.stack([y0, y1])
+    with span("sm.rng"):
+        d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
+        y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+        return torch.stack([y0, y1])
 
 
 def _random_bits32(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
@@ -111,9 +116,10 @@ def uniform(
     """float32 uniform draws in [minval, maxval), bit-exact with
     ``jax.random.uniform(key, shape, minval=..., maxval=...)``."""
     shape = tuple(int(s) for s in shape)
-    bits = _random_bits32(key, shape)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))
+    with span("sm.rng"):
+        bits = _random_bits32(key, shape)
+        fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+        floats = fbits.view(torch.float32) - 1.0
+        lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+        hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+        return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))

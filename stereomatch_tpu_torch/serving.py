@@ -29,6 +29,7 @@ import torch
 
 from .config import MSTConfig, SGBMConfig
 from . import random as trandom
+from .utils.timing import span
 
 __all__ = [
     "StereoStreamServer",
@@ -157,6 +158,11 @@ class StereoStreamServer:
         return ticket
 
     def _finish(self, p: _Pending) -> None:
+        with span("sm.server.collect"):
+            self._complete(p)
+
+    def _complete(self, p: _Pending) -> None:
+        """The frame's outputs to the host, replayed on a failure."""
         try:
             self._done[p.ticket] = _to_host(p.outputs)
             return
@@ -206,8 +212,9 @@ def _volume_stage(h: int, w: int, d: int, guided: bool):
         for img in (left_bgr, right_bgr):
             if tuple(img.shape) != (h, w, 3):
                 raise ValueError(f"server is built for ({h}, {w}, 3) frames, got {tuple(img.shape)}")
-        left_bgr, right_bgr = left_bgr.float(), right_bgr.float()
-        vl, vr = builtin_cost_volumes(left_bgr.flip(-1), right_bgr.flip(-1), d, guided=guided)
+        with span("sm.volume"):
+            left_bgr, right_bgr = left_bgr.float(), right_bgr.float()
+            vl, vr = builtin_cost_volumes(left_bgr.flip(-1), right_bgr.flip(-1), d, guided=guided)
         return left_bgr, right_bgr, vl, vr
 
     return stage
@@ -256,8 +263,9 @@ def compile_sgbm_mst_server(
                                 retry_backoff_s=retry_backoff_s)
 
     def submit_pair(left_bgr: np.ndarray, right_bgr: np.ndarray, seed: int | None = None) -> int:
-        s = server._next if seed is None else seed
-        return server.submit(left_bgr, right_bgr, trandom.PRNGKey(s, server.device))
+        with span("sm.server.submit"):
+            s = server._next if seed is None else seed
+            return server.submit(left_bgr, right_bgr, trandom.PRNGKey(s, server.device))
 
     server.submit_pair = submit_pair  # type: ignore[attr-defined]
     return server
@@ -345,6 +353,10 @@ class VideoStreamServer(StereoStreamServer):
         return disp_l, disp_r
 
     def submit_pair(self, left_bgr, right_bgr, seed: int | None = None) -> int:
+        with span("sm.server.submit"):
+            return self._submit_pair(left_bgr, right_bgr, seed)
+
+    def _submit_pair(self, left_bgr, right_bgr, seed: int | None) -> int:
         i = self._next
         key = trandom.PRNGKey(i if seed is None else seed, self.device)
         keyframe = self._prev is None or (
@@ -371,8 +383,8 @@ class VideoStreamServer(StereoStreamServer):
         self._prev_ticket = t
         return t
 
-    def _finish(self, p: _Pending) -> None:
-        super()._finish(p)
+    def _complete(self, p: _Pending) -> None:
+        super()._complete(p)
         if p.stat is None:
             return
         try:
@@ -388,13 +400,14 @@ class VideoStreamServer(StereoStreamServer):
         # scene cut: rerun this frame as a keyframe (fresh SGBM seeds and,
         # with reuse_forest, fresh forests), with the frame's own key
         self.scene_cuts += 1
-        out = p.replay()
-        self._done[p.ticket] = _to_host(out)
-        if self._is_newest(p.ticket):
-            self._prev = out
-            self._since_key = 1
-        if self._lr_stat is not None:
-            self._key_frac = float(self._lr_stat(out[0], out[1]))
+        with span("sm.server.scene_cut"):
+            out = p.replay()
+            self._done[p.ticket] = _to_host(out)
+            if self._is_newest(p.ticket):
+                self._prev = out
+                self._since_key = 1
+            if self._lr_stat is not None:
+                self._key_frac = float(self._lr_stat(out[0], out[1]))
 
     def reset(self) -> None:
         """Drop the temporal state: the next frame is a keyframe and the
@@ -450,7 +463,7 @@ def compile_mst_video_server(
     ti = fine_iterations if temporal_iterations is None else temporal_iterations
     trs = refine_start if temporal_refine_start is None else temporal_refine_start
     tmax, adj_cap = _fused_capacities(h, w, cfg)
-    span = float(cfg.max_disp - 1)
+    top = float(cfg.max_disp - 1)
     volumes = _volume_stage(h, w, cfg.max_disp, volume_guided)
 
     if reuse_forest:
@@ -470,9 +483,9 @@ def compile_mst_video_server(
         def refine(left_bgr, right_bgr, pdl, pdr, fl, fr, k):
             _, _, vl, vr = volumes(left_bgr, right_bgr)
             kl, kr = trandom.split(k)
-            dl = _refine_view_given_forest(fl, vl, torch.clamp(pdl, 0.0, span), kl, cfg, h, w,
+            dl = _refine_view_given_forest(fl, vl, torch.clamp(pdl, 0.0, top), kl, cfg, h, w,
                                            tmax, ti, trs, max_neighbors)
-            dr = _refine_view_given_forest(fr, vr, torch.clamp(pdr, 0.0, span), kr, cfg, h, w,
+            dr = _refine_view_given_forest(fr, vr, torch.clamp(pdr, 0.0, top), kr, cfg, h, w,
                                            tmax, ti, trs, max_neighbors)
             return dl, dr
     else:
@@ -486,8 +499,8 @@ def compile_mst_video_server(
         def refine(left_bgr, right_bgr, prev_dl, prev_dr, key):
             left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
             return _mst_refine_frame_fused(
-                left_bgr, right_bgr, vl, vr, torch.clamp(prev_dl, 0.0, span),
-                torch.clamp(prev_dr, 0.0, span), key, cfg, ti, trs, max_neighbors,
+                left_bgr, right_bgr, vl, vr, torch.clamp(prev_dl, 0.0, top),
+                torch.clamp(prev_dr, 0.0, top), key, cfg, ti, trs, max_neighbors,
                 h, w, tmax, adj_cap,
             )
 
