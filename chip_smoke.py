@@ -9,10 +9,12 @@ within float32 reassociation, and bit for bit on the same cost rounded to
 integers, and twice on the same cost bit for bit; K2's node-order and
 Euler scans and its fused ancestor sum on a real device forest at 7 rows,
 and on the host forest of the flat path at its 18 rows, at max_log_range
-4 and 40, within rtol 1e-5 / atol 1e-4), times each beside its bound (the
+4 and 40, within rtol 1e-5 / atol 1e-4; K3's threefry split, fold_in and
+uniform bit for bit at the refine's tree count and at one draw a node, both
+at 2048x1536), times each beside its bound (the
 ancestor sum also beside the composition it replaces, with the share of
 K2's tiles whose look-back went past the tile before, and holds each K2
-call to one device kernel in torch.profiler's events), then serves 3
+call and each K3 draw to one device kernel in torch.profiler's events), then serves 3
 frames of a 960x1280 pair at 128 disparities through
 `stereomatch_tpu_torch.serving.compile_sgbm_mst_server`, with the guided
 and the raw cost volume, and gates the LR-checked left maps on the
@@ -67,7 +69,8 @@ is on record): the frame-parallel SGBM (K1), the row-tiled and (tile_y,
 tile_x, dslab) cost-volume pipelines, the slab WTA, the band-pipelined SGBM
 (K1c) at 2048x1536x256 and both 3DMST meshes (K2, K2a), each held to its
 one-process counterpart (`parallel_paths`). Every path's K1 / K1c / K2 /
-K2a launches are counted and held to its frame mix. Also reports whether the server gives
+K2a / K3 launches are counted and held to its frame mix (K3: the draws of
+its engines' key chains). Also reports whether the server gives
 the same maps twice for the same frame and seed. The band check holds
 the band-streamed SGBM equal to the whole frame on every pixel of the
 integer gray. Fails (non-zero exit,
@@ -205,6 +208,15 @@ CLI_K1 = ("sgbm", "hh", "sgbm3way", "sgbm_mst")
 # mst: MSTConfig(max_disp=64)'s 100 iterations; sgbm_mst: the seed's cost +
 # its 10 fine iterations; 2 views and 3 scans of each kind a tree filter
 CLI_K2 = {"mst": 600, "sgbm_mst": 66}
+# K3 (random.py's threefry draws), launches a call: the 3DMST key chain in
+# k3_optimize, PatchMatch's and the coupled engine's in k3_patchmatch and
+# k3_coupled; every other engine draws nothing
+K3_NONE = {"K3": 0}
+# K3 beside its int64 twin at the 3DMST cells' 2048x1536: the refine's draws
+# (a tree each, the tree capacity) and one draw a node, as init_labels makes them
+K3_FRAME = (1536, 2048)
+K3_NODES = K3_FRAME[0] * K3_FRAME[1]
+K3_RANGES = ((0.0, 1.0), (-1.0, 1.0), (0.0, 100.0), (2.0, 9.5))
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -314,6 +326,41 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def k3_optimize(iterations, neighbours, start=None, max_disp=MAX_DISP, random_init=False) -> int:
+    """K3 launches of one mst_pms_optimize: split(key) and split(key,
+    iterations); a random init's split and 3 uniform draws; per iteration
+    split(key_i, 3) and the base node's draw, 4 a neighbour candidate
+    (fold_in, split, 2 uniform) and 2 a refinement level (fold_in,
+    uniform)."""
+    from stereomatch_tpu_torch.ops.mst import refine_deltas
+
+    levels = int(refine_deltas(max_disp, start, device="cpu")[0].shape[0])
+    return 2 + 4 * random_init + iterations * (2 + 4 * neighbours + 2 * levels)
+
+
+def k3_frame(*args, **kw) -> int:
+    """K3 launches of a 3DMST frame: split(key) into the views' keys, then
+    each view's k3_optimize(*args, **kw)."""
+    return 1 + 2 * k3_optimize(*args, **kw)
+
+
+def k3_patchmatch(cfg) -> int:
+    """K3 launches of patchmatch_stereo: split(key, 3), each view's random
+    planes (split, 3 uniform), split(kloop, iterations), per round
+    split(key_i) and per view 2 a refinement level (fold_in, uniform)."""
+    from stereomatch_tpu_torch.ops.patchmatch import _refine_ladder
+
+    return 10 + cfg.iterations * (1 + 4 * len(_refine_ladder(cfg.max_disp)))
+
+
+def k3_coupled(cfg) -> int:
+    """K3 launches of coupled_patchmatch_stereo: split(key), per round
+    fold_in(kloop, it) and 2 a refinement level (fold_in, uniform)."""
+    from stereomatch_tpu_torch.ops.patchmatch import _refine_ladder
+
+    return 1 + cfg.outer_iterations * (1 + 2 * len(_refine_ladder(cfg.max_disp)))
+
+
 def gate(dl, dr, scene, gates, tag, max_disp=MAX_DISP):
     """LR-check the left map and hold it to the scene's exact GT."""
     from stereomatch_tpu_torch.eval import disparity_metrics
@@ -404,27 +451,106 @@ def k2_cases(fr, rows, tag, dev, g):
     return out
 
 
+def k3_cases(tmax, dev) -> dict:
+    """K3's split, fold_in and uniform on the card against their int64 twins
+    (random.split_twin, fold_in_twin, uniform_twin, run on the same CUDA
+    key) at the refine's shapes at K3_FRAME: every bit equal, uniform in each of
+    K3_RANGES at (tmax,), (4, tmax) and (K3_NODES,). Each draw held to one
+    device kernel (profiler) and timed beside its twin: CUDA events over
+    back-to-back draws, the kernel's own device time, the host's enqueue
+    time a draw, and the bound of its output written once. Returns the
+    kernel line's K3 entry, its `ms` the (K3_NODES,) draw."""
+    from stereomatch_tpu_torch import random as trandom
+
+    key = trandom.split(trandom.PRNGKey(7, dev), 3)[1]
+    draws = {  # (K3's call, its twin's, the bytes it writes)
+        "split3": (lambda: trandom.split(key, 3), lambda: trandom.split_twin(key, 3), 3 * 16),
+        "fold_in": (lambda: trandom.fold_in(key, 2**32 - 1),
+                    lambda: trandom.fold_in_twin(key, 2**32 - 1), 16),
+    }
+    for lo, hi in K3_RANGES:
+        for name, shape in (("trees", (tmax,)), ("trees4", (4, tmax)), ("nodes", (K3_NODES,))):
+            got = trandom.uniform(key, shape, lo, hi)
+            want = trandom.uniform_twin(key, shape, lo, hi)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+                raise AssertionError(f"K3 uniform {shape} in [{lo}, {hi}): {n} draws differ "
+                                     f"from the twin's bits")
+            if (lo, hi) == ((-1.0, 1.0) if name == "trees4" else (0.0, 1.0)):
+                draws[name] = (lambda s=shape, a=lo, b=hi: trandom.uniform(key, s, a, b),
+                               lambda s=shape, a=lo, b=hi: trandom.uniform_twin(key, s, a, b),
+                               4 * int(np.prod(shape)))
+    for num in (1, 3, 1000):
+        if not torch.equal(trandom.split(key, num), trandom.split_twin(key, num)):
+            raise AssertionError(f"K3 split({num}) != its twin")
+    for data in (0, 1, 2**31, 2**32 - 1):
+        if not torch.equal(trandom.fold_in(key, data), trandom.fold_in_twin(key, data)):
+            raise AssertionError(f"K3 fold_in({data}) != its twin")
+
+    def host_us(fn, reps):
+        """Host time a call to enqueue `reps` calls, no sync inside."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sec = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return sec / reps * 1e6
+
+    rows = {}
+    for name, (fn, twin, nbytes) in draws.items():
+        nk, busy = device_trace(fn)
+        if nk != 1:
+            raise AssertionError(f"K3 {name}: {nk} device kernels a draw, not one")
+        bms, by = bound(nbytes, 0.0)
+        rows[name] = {"ms": cuda_time_ms(fn, 200), "kernel_ms": busy,
+                      "plain_ms": cuda_time_ms(twin, 20), "host_us": host_us(fn, 200),
+                      "plain_host_us": host_us(twin, 20), "bound_ms": bms, "bound_by": by}
+        r = rows[name]
+        log(f"K3 {name}: bit for bit its twin's; one device kernel a draw, "
+            f"{r['kernel_ms'] * 1e3:.2f} us of it (profiler; bound {bms * 1e3:.3f} us, the "
+            f"output written once); {r['ms'] * 1e3:.2f} us a draw back to back (CUDA events), "
+            f"host {r['host_us']:.1f} us a draw; twin {r['plain_ms'] * 1e3:.1f} us, host "
+            f"{r['plain_host_us']:.1f} us a draw")
+    nodes = rows["nodes"]
+    return {"name": "threefry_kernel", "route": "cuda",
+            "source": "stereomatch_tpu_torch/csrc/threefry.cu",
+            "replaces": "jax.random's threefry2x32 (split, fold_in, uniform)",
+            "max_abs_err": 0.0, "ms": nodes["ms"], "plain_ms": nodes["plain_ms"],
+            "bound_ms": nodes["bound_ms"], "bound_by": nodes["bound_by"], "library_ms": None,
+            "shape": [K3_NODES], "draws": rows}
+
+
 def counted(run):
     """Run one path with every launch counter set to 0 just before it;
     returns (its result, the counts just after it)."""
+    from stereomatch_tpu_torch import random as trandom
     from stereomatch_tpu_torch.ops.mst_scan_cuda import ancestor_sums, segmented_cumsum
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
 
-    aggregate_8path_cuda.launches = 0
-    aggregate_paths_cuda.launches = 0
-    segmented_cumsum.launches = 0
-    ancestor_sums.launches = 0
+    draws = (trandom.split, trandom.fold_in, trandom.uniform)
+    for fn in (aggregate_8path_cuda, aggregate_paths_cuda, segmented_cumsum, ancestor_sums,
+               *draws):
+        fn.launches = 0
     out = run()
     return out, {"K1": aggregate_8path_cuda.launches, "K1c": aggregate_paths_cuda.launches,
-                 "K2": segmented_cumsum.launches, "K2a": ancestor_sums.launches}
+                 "K2": segmented_cumsum.launches, "K2a": ancestor_sums.launches,
+                 "K3": sum(fn.launches for fn in draws)}
 
 
 def expect_launches(tag, got, keys, temporals):
-    want = {k: keys * KEY_LAUNCHES[k] + temporals * TEMPORAL_LAUNCHES[k] for k in got}
+    """The servers' frames: a keyframe refines 4 iterations from 2 px, a
+    temporal frame 2 from 4 px, 2 neighbour trees each."""
+    key = {**KEY_LAUNCHES, "K3": k3_frame(4, 2, 2.0)}
+    temporal = {**TEMPORAL_LAUNCHES, "K3": k3_frame(2, 2, 4.0)}
+    want = {k: keys * key[k] + temporals * temporal[k] for k in got}
     expect_exact(tag, got, want, f"{keys} keyframes + {temporals} temporal frames")
 
 
 def expect_exact(tag, got, want, mix):
+    """`want` gives K1, K1c, K2 and K2a; K3 where the path draws (else 0)."""
+    want = {**K3_NONE, **want}
     if got != want:
         raise AssertionError(f"{tag}: launches {got}, expected {want} for {mix}")
     log(f"{tag}: launches {got} (K2 calls {got['K2'] + got['K2a']}) = {mix}")
@@ -537,7 +663,8 @@ def host_forest_paths(scene, dev) -> dict:
         lambda: pipelines.mst_pipeline(rgb_l, rgb_r, cfg=cfg, seed=0, device=dev)))
     log(f"flat frame (mst_pipeline, {cfg.iterations} random-init iterations, host forest): "
         f"{sec:.3f} s, {gate(*maps, scene, GATES, 'flat frame')}")
-    expect_exact("flat", launches["flat"], FLAT_LAUNCHES,
+    expect_exact("flat", launches["flat"],
+                 {**FLAT_LAUNCHES, "K3": k3_frame(cfg.iterations, 8, random_init=True)},
                  f"2 views x {cfg.iterations} iterations x 3")
 
     # the flat frame's left view, stage by stage (host clock + sync)
@@ -560,7 +687,8 @@ def host_forest_paths(scene, dev) -> dict:
         lambda: pipelines.sgbm_mst_pipeline(rgb_l, rgb_r, cfg=cfg, seed=0, device=dev)))
     log(f"seeded frame on the host forest (sgbm_mst_pipeline, 10 iterations): {sec:.3f} s, "
         f"{gate(*maps, scene, GATES, 'seeded host frame')}")
-    expect_exact("seeded_host", launches["seeded_host"], SEEDED_HOST_LAUNCHES,
+    expect_exact("seeded_host", launches["seeded_host"],
+                 {**SEEDED_HOST_LAUNCHES, "K3": k3_frame(10, 2, 2.0)},
                  "1 SGBM seed + 2 views x (1 seed cost + 10 iterations) x 3")
 
     # the built-in guided volumes, as mst_pipeline makes them, outside the count
@@ -573,7 +701,8 @@ def host_forest_paths(scene, dev) -> dict:
     log(f"fused random-init frame (mst_stereo_fused, {FUSED_ITERS} iterations, device forest, "
         f"its default 8 neighbour trees): {sec:.3f} s, "
         f"{gate(*maps, scene, FUSED_GATES, 'fused frame')}")
-    expect_exact("fused_random", launches["fused_random"], FUSED_LAUNCHES,
+    expect_exact("fused_random", launches["fused_random"],
+                 {**FUSED_LAUNCHES, "K3": k3_frame(FUSED_ITERS, 8, random_init=True)},
                  f"2 views x {FUSED_ITERS} iterations x 3")
     log(f"host forest and random-init section wall time {time.perf_counter() - t_section:.1f} s")
     return launches
@@ -694,6 +823,8 @@ def patchmatch_paths(scene, dev) -> dict:
                                         lvol, c_cfg)
         return out.smoothed.cpu().numpy()
 
+    k3_draws = {"patchmatch_pipeline": k3_patchmatch(pm_cfg),
+                "coupled_patchmatch": k3_coupled(c_cfg)}
     runs = {
         "patchmatch_pipeline": lambda: pipelines.patchmatch_pipeline(rgb_l, rgb_r, pm_cfg,
                                                                      device=dev)[0],
@@ -711,7 +842,8 @@ def patchmatch_paths(scene, dev) -> dict:
         _, launches[name] = counted(lambda: maps.append(run()))
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        expect_exact(name, launches[name], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0}, "one call")
+        expect_exact(name, launches[name], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0,
+                                            "K3": k3_draws[name]}, "one call")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         maps.append(run())
@@ -988,7 +1120,11 @@ def c2f_prior_paths(scene, dev) -> dict:
             f"{C2F_RUN['fine_iterations']} fine iterations, host forest, {prior} at "
             f"{cfg.smoothness_iters} iterations): {sec:.3f} s, "
             f"{gate(*maps, scene, GATES, path)}")
-        expect_exact(path, launches[path], C2F_LAUNCHES,
+        # each view: split into the coarse and fine keys, the coarse random
+        # init at max_disp / k, the fine stage from its labels
+        k3 = 1 + k3_optimize(C2F_RUN["coarse_iterations"], 8, max_disp=MAX_DISP // C2F_RUN["k"],
+                             random_init=True) + k3_optimize(C2F_RUN["fine_iterations"], 8)
+        expect_exact(path, launches[path], {**C2F_LAUNCHES, "K3": 1 + 2 * k3},
                      "2 views x (30 coarse + 1 seed cost + 10 fine iterations) x 3")
         if prior == "NONE":
             left_none = out.left_disp
@@ -1091,7 +1227,7 @@ def apps_paths(band_scene, dev) -> dict:
     import tempfile
 
     from stereomatch_tpu_torch.apps import cli, stereo_test, stereo_yin, stream
-    from stereomatch_tpu_torch.config import SGBMConfig
+    from stereomatch_tpu_torch.config import CoupledConfig, PatchMatchConfig, SGBMConfig
     from stereomatch_tpu_torch.io import (
         clean_mccnn, load_image, load_mccnn_volume, save_mccnn_volume,
     )
@@ -1162,7 +1298,9 @@ def apps_paths(band_scene, dev) -> dict:
     rig_xml = os.path.join(data, "identity.xml")
     ((disp, _), sec, peak), launches["stereo_yin"] = counted(lambda: timed(
         lambda: stereo_yin.run(data, 21, rig_xml, out, **YIN_RUN, device=dev)))
-    expect_exact("stereo_yin", launches["stereo_yin"], YIN_LAUNCHES,
+    yin_k3 = {**YIN_LAUNCHES, "K3": k3_frame(YIN_RUN["iterations"], 8, max_disp=YIN_RUN["max_disp"],
+                                            random_init=True)}
+    expect_exact("stereo_yin", launches["stereo_yin"], yin_k3,
                  f"2 views x {YIN_RUN['iterations']} iterations x 3")
     # the LR check zeroes what it rejects and the app clamps to 10: score
     # the pixels above the clamp
@@ -1194,7 +1332,7 @@ def apps_paths(band_scene, dev) -> dict:
         ((disp, _), sec, _), launches[path] = counted(lambda: timed(
             lambda: stereo_yin.run(data, 21, rig_xml, out, **YIN_RUN, scale=0.25,
                                    mccnn_dir=mc_dir, verbose=False, device=dev)))
-        expect_exact(path, launches[path], YIN_LAUNCHES,
+        expect_exact(path, launches[path], yin_k3,
                      f"2 views x {YIN_RUN['iterations']} iterations x 3")
         quarter[route] = (disp, sec)
     if not np.array_equal(quarter["builtin"][0], quarter["mccnn"][0]):
@@ -1223,6 +1361,8 @@ def apps_paths(band_scene, dev) -> dict:
     keys = [i % STREAM_MST["temporal_reseed"] == 0 for i in range(len(STREAM_IDS))]
     want = {k: sum(STREAM_KEY[k] if key else STREAM_TEMPORAL[k] for key in keys)
             for k in STREAM_KEY}
+    # 8 neighbour trees; keyframes 4 iterations from 2 px, temporal 2 from 4 px
+    want["K3"] = sum(k3_frame(4, 8, 2.0) if key else k3_frame(2, 8, 4.0) for key in keys)
     expect_exact("stream_run_mst", launches["stream_run_mst"], want,
                  f"{sum(keys)} keyframes + {len(keys) - sum(keys)} temporal frames, no scene cut")
     digits = []
@@ -1268,6 +1408,10 @@ def apps_paths(band_scene, dev) -> dict:
     crig = os.path.join(cdata, "distorted.xml")
     write_calibration(crig, **distorted_calibration(ch, cw))
     lp, rp = (os.path.join(cdata, f"000000_{cam}.jpg") for cam in ("191400042", "191400039"))
+    cli_k3 = {"mst": k3_frame(100, 8, max_disp=cd, random_init=True),
+              "sgbm_mst": k3_frame(10, 2, 2.0, max_disp=cd),
+              "pm": k3_patchmatch(PatchMatchConfig(max_disp=float(cd - 1), iterations=10)),
+              "coupled": k3_coupled(CoupledConfig(max_disp=cd - 1))}
     secs = {}
     for i, alg in enumerate(CLI_ALGORITHMS):
         png = os.path.join(cdata, f"{alg}.png")
@@ -1278,7 +1422,7 @@ def apps_paths(band_scene, dev) -> dict:
              "-p", cloud, "--device", str(dev)])))
         k2 = CLI_K2.get(alg, 0)
         expect_exact(path, launches[path], {"K1": int(alg in CLI_K1), "K1c": 0, "K2": k2,
-                                            "K2a": k2}, "one call")
+                                            "K2a": k2, "K3": cli_k3.get(alg, 0)}, "one call")
         if rc != 0 or not os.path.exists(cloud) or os.path.getsize(cloud) == 0:
             raise AssertionError(f"cli {alg}: rc {rc}, cloud file missing or empty")
         if load_image(png, gray=True).shape != (ch, cw):
@@ -1440,7 +1584,7 @@ def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
                  lambda: mst_mesh.mst_pms_optimize_mesh(kl, vl, fa, cmesh, ncfg, **kw)),
                 (f"mesh_mst_node{tag}", lambda: mst_mesh.mst_pms_optimize_mesh_sharded(
                     kl, mst_mesh.volume_in_node_order(vl, fa), fa, nmesh, ncfg, **kw))):
-            got = run(path, fn, {"K2": k2, "K2a": k2},
+            got = run(path, fn, {"K2": k2, "K2a": k2, "K3": k3_optimize(4, 2, 2.0)},
                       f"4 iterations{' and the normalization' if norm else ''}: one tree filter "
                       f"each")
             mst_equal[path] = all(torch.equal(g, x) for g, x in zip(got, want))
@@ -1596,6 +1740,7 @@ def main() -> int:
     kernels["K2"]["max_abs_err"] = max(kernels["K2"]["max_abs_err"],
                                        k2_entry("segmented_cumsum", "nodes")["max_abs_err"])
     kernels["K2a"] = k2_entry("ancestor_sums", "ancestor")
+    kernels["K3"] = k3_cases(_fused_capacities(*K3_FRAME, cfg)[0], dev)
 
     # ---- the slice: the server's main path, counted ----
     servers = {
@@ -1700,7 +1845,7 @@ def main() -> int:
         "bound_ms": k1c["bound_ms"], "bound_by": k1c["bound_by"], "library_ms": None,
         "shape": k1c["shape"], "up_sweep_ms": k1c["up_sweep_ms"],
     }
-    for k in ("K1", "K1c", "K2", "K2a"):
+    for k in ("K1", "K1c", "K2", "K2a", "K3"):
         counts = {path: c[k] for path, c in by_path.items()}
         if sum(counts.values()) <= 0:
             raise AssertionError(f"{k} was launched on no path: {counts}")
@@ -1708,7 +1853,7 @@ def main() -> int:
         kernels[k]["launches_by_path"] = counts
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K1c", "K2", "K2a")]}))
+    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K1c", "K2", "K2a", "K3")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,10 +4,11 @@ The kernels build at first use, from the sources in this checkout, into
 `build/torch_ext/` at the repository root, and only when a CUDA tensor
 reaches a kernel wrapper: importing the package needs neither a GPU nor
 nvcc. With `ninja` on PATH the build is one
-`torch.utils.cpp_extension.load` call (both .cu files plus the one
-binding file that includes torch/extension.h); without it, the same three
-sources are compiled by one `nvcc -shared` command into the same Python
-extension module. Both target `sm_90a`.
+`torch.utils.cpp_extension.load` call (the three .cu files, K1's
+`sgbm_aggregate.cu`, K2's `seg_scan.cu` and K3's `threefry.cu`, plus the
+one binding file that includes torch/extension.h); without it, the same
+four sources are compiled by one `nvcc -shared` command into the same
+Python extension module. Both target `sm_90a`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ __all__ = ["load_kernels", "BUILD_DIR"]
 _NAME = "stereomatch_tpu_torch_kernels"
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
-_SOURCES = ("bindings.cpp", "sgbm_aggregate.cu", "seg_scan.cu")
+_SOURCES = ("bindings.cpp", "sgbm_aggregate.cu", "seg_scan.cu", "threefry.cu")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 
@@ -74,8 +75,9 @@ def _load_with_nvcc(verbose: bool, build_dir: Path = BUILD_DIR):
 
 @functools.cache
 def load_kernels(verbose: bool = False):
-    """The compiled kernel module (`sgbm_aggregate`; `seg_scan`,
-    `ancestor_sums` and `seg_scan_plan`), built on the first call in this
-    process. Raises if the build fails."""
+    """The compiled kernel module (K1 `sgbm_aggregate`; K2 `seg_scan`,
+    `ancestor_sums` and `seg_scan_plan`; K3 `threefry_keys` and
+    `threefry_uniform`), built on the first call in this process. Raises if
+    the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return _load_with_ninja(verbose) if shutil.which("ninja") else _load_with_nvcc(verbose)

@@ -1,6 +1,6 @@
 // PyTorch bindings of the Hopper kernels. The only source that includes
 // torch/extension.h; the kernels themselves see raw pointers. The Python
-// wrappers (ops/sgbm_cuda.py, ops/mst_scan_cuda.py) check device, dtype,
+// wrappers (ops/sgbm_cuda.py, ops/mst_scan_cuda.py, random.py) check device, dtype,
 // shape and contiguity before calling in; the checks here guard the
 // pointer arithmetic the kernels rely on.
 
@@ -118,6 +118,34 @@ void ancestor_sums(const at::Tensor& v, const at::Tensor& src, const at::Tensor&
                        at::cuda::getCurrentCUDAStream());
 }
 
+// K3's key: an int64 (2,) tensor on out's device, read by the kernel
+const int64_t* check_key(const at::Tensor& key, const at::Tensor& out) {
+  TORCH_CHECK(key.is_cuda() && key.scalar_type() == at::kLong && key.dim() == 1 &&
+                  key.size(0) == 2, "a key must be an int64 CUDA tensor of shape (2,)");
+  check_cuda_contig(out, "out");
+  TORCH_CHECK(out.device() == key.device(), "out must be on the key's device");
+  return key.data_ptr<int64_t>();
+}
+
+void threefry_keys(const at::Tensor& key, int64_t base, at::Tensor out) {
+  const int64_t* k = check_key(key, out);
+  TORCH_CHECK(out.scalar_type() == at::kLong && out.dim() >= 1 && out.size(-1) == 2,
+              "out must be int64 (..., 2)");
+  TORCH_CHECK(base >= 0 && base <= 0xFFFFFFFFll && base + out.numel() / 2 <= (int64_t(1) << 32),
+              "counters must fit 32 bits");
+  const c10::cuda::CUDAGuard guard(key.device());
+  threefry_keys_launch(k, key.stride(0), (uint32_t)base, out.numel() / 2,
+                       out.data_ptr<int64_t>(), at::cuda::getCurrentCUDAStream());
+}
+
+void threefry_uniform(const at::Tensor& key, at::Tensor out, double lo, double hi) {
+  const int64_t* k = check_key(key, out);
+  TORCH_CHECK(out.scalar_type() == at::kFloat, "out must be float32");
+  const c10::cuda::CUDAGuard guard(key.device());
+  threefry_uniform_launch(k, key.stride(0), out.numel(), (float)lo, (float)hi,
+                          out.data_ptr<float>(), at::cuda::getCurrentCUDAStream());
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -126,4 +154,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("seg_scan_plan", &plan, "K2: (tile ids, workspace words) of a (K, M) call");
   m.def("seg_scan", &seg_scan, "K2: segmented inclusive prefix sum along rows");
   m.def("ancestor_sums", &ancestor_sums, "K2 with the Euler ancestor-sum gathers fused");
+  m.def("threefry_keys", &threefry_keys, "K3: (..., 2) keys threefry(key, (0, base + i))");
+  m.def("threefry_uniform", &threefry_uniform, "K3: float32 uniform draws in [lo, hi)");
 }

@@ -47,3 +47,15 @@ void ancestor_sums_launch(const float* v, const int64_t* src, const uint8_t* is_
                           const uint8_t* reset, float* out, int k, int64_t n, int64_t m,
                           unsigned long long* ws, unsigned long long id_base, uint32_t epoch,
                           cudaStream_t stream);
+
+// K3 (threefry.cu): threefry-2x32 draws keyed by the uint32 values held in
+// key[0] and key[key_stride] (int64 words on the device, read by the
+// kernel). The keys entry writes out (n, 2) int64, row i = threefry(key,
+// (0, base + i)); the uniform entry writes out (n,) float32, element i =
+// max(lo, fma(f, hi - lo, lo)) with f the top 23 bits of y0 ^ y1 of
+// threefry(key, (i >> 32, i & 0xFFFFFFFF)) as a float in [0, 1). One
+// launch each, none for n == 0.
+void threefry_keys_launch(const int64_t* key, int64_t key_stride, uint32_t base, int64_t n,
+                          int64_t* out, cudaStream_t stream);
+void threefry_uniform_launch(const int64_t* key, int64_t key_stride, int64_t n, float lo,
+                             float hi, float* out, cudaStream_t stream);

@@ -6,10 +6,14 @@ split in ``models/sgbm_mst.py``, the per-frame key in ``serving.py``).
 Reproducing that stream exactly makes every comparison between the two
 packages like-for-like: the same key yields the same candidate planes.
 
-A key is an int64 tensor of shape (..., 2) holding two uint32 words (the
-JAX raw key layout, ``uint32[2]``). All arithmetic runs on int64 tensors
-masked to 32 bits, on whatever device the key lives on. The semantics
-follow jax 0.9 with ``jax_threefry_partitionable=True`` (its default):
+A key is an int64 tensor of shape (2,) holding two uint32 words (the JAX
+raw key layout, ``uint32[2]``). A draw from a CUDA key is one launch of
+kernel K3 (``csrc/threefry.cu``), which reads the key on the device, so it
+never syncs. A draw from a CPU key runs K3's plain twin (``split_twin``,
+``fold_in_twin``, ``uniform_twin``, built on ``threefry2x32``): int64
+tensors masked to 32 bits, about 171 eager ops a draw, which the CPU tests
+hold to ``jax.random``. The semantics follow jax 0.9 with
+``jax_threefry_partitionable=True`` (its default):
 
 - ``PRNGKey(s)`` = ``[0, s & 0xFFFFFFFF]`` for an int32 seed;
 - ``split(k, n)[i]`` = threefry(k, (0, i));
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .utils.timing import span
 
 __all__ = ["PRNGKey", "split", "fold_in", "uniform", "threefry2x32"]
@@ -64,30 +69,73 @@ def PRNGKey(seed: int, device: torch.device | str = "cuda") -> torch.Tensor:
     return key
 
 
+def split_twin(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """K3's twin of `split`, on the key's device."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in_twin(key: torch.Tensor, data: int) -> torch.Tensor:
+    """K3's twin of `fold_in`, on the key's device."""
+    # a device fill: a host-to-device copy of `data` would sync the stream
+    d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1])
+
+
+def _check_key(key: torch.Tensor) -> None:
+    if not key.is_cuda:
+        raise ValueError(f"K3 takes CUDA (or CPU) keys, got one on {key.device}")
+    if key.dtype != torch.int64 or key.shape != (2,):
+        raise TypeError(f"a key must be int64 of shape (2,), got {key.dtype}{list(key.shape)}")
+
+
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """(num, 2) subkeys; index or unpack the first axis."""
+    """(num, 2) subkeys; index or unpack the first axis. A CUDA key is one
+    K3 launch; a CPU key runs the twin. `split.launches` counts launches."""
     with span("sm.rng"):
-        lo = torch.arange(num, dtype=torch.int64, device=key.device)
-        y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
-        return torch.stack([y0, y1], dim=-1)
+        if key.device.type == "cpu":
+            return split_twin(key, num)
+        _check_key(key)
+        out = torch.empty((num, 2), dtype=torch.int64, device=key.device)
+        if num > 0:
+            _build.load_kernels().threefry_keys(key, 0, out)
+            split.launches += 1
+        return out
+
+
+split.launches = 0
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """Key derived from `key` and a 32-bit Python integer."""
-    # a device fill: a host-to-device copy of `data` would sync the stream
+    """Key derived from `key` and a 32-bit Python integer. A CUDA key is
+    one K3 launch, `data` its argument; a CPU key runs the twin.
+    `fold_in.launches` counts launches."""
     with span("sm.rng"):
-        d = torch.full((), int(data) & _M32, dtype=torch.int64, device=key.device)
-        y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
-        return torch.stack([y0, y1])
+        if key.device.type == "cpu":
+            return fold_in_twin(key, data)
+        _check_key(key)
+        out = torch.empty(2, dtype=torch.int64, device=key.device)
+        _build.load_kernels().threefry_keys(key, int(data) & _M32, out)
+        fold_in.launches += 1
+        return out
+
+
+fold_in.launches = 0
+
+
+def _bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The random bits at the int64 flat indices idx."""
+    y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
+    return y0 ^ y1
 
 
 def _random_bits32(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
-    return (y0 ^ y1).reshape(shape)
+    return _bits_at(key, torch.arange(n, dtype=torch.int64, device=key.device)).reshape(shape)
 
 
 def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -107,6 +155,22 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.where(tie & (e > 0), hi32, torch.where(tie & (e < 0), lo32, r32))
 
 
+def uniform_twin(
+    key: torch.Tensor,
+    shape: tuple[int, ...],
+    minval: float = 0.0,
+    maxval: float = 1.0,
+) -> torch.Tensor:
+    """K3's twin of `uniform`, on the key's device."""
+    shape = tuple(int(s) for s in shape)
+    bits = _random_bits32(key, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
+    return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))
+
+
 def uniform(
     key: torch.Tensor,
     shape: tuple[int, ...],
@@ -114,12 +178,18 @@ def uniform(
     maxval: float = 1.0,
 ) -> torch.Tensor:
     """float32 uniform draws in [minval, maxval), bit-exact with
-    ``jax.random.uniform(key, shape, minval=..., maxval=...)``."""
-    shape = tuple(int(s) for s in shape)
+    ``jax.random.uniform(key, shape, minval=..., maxval=...)``. A CUDA key
+    is one K3 launch (none for an empty shape); a CPU key runs the twin.
+    `uniform.launches` counts launches."""
     with span("sm.rng"):
-        bits = _random_bits32(key, shape)
-        fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-        floats = fbits.view(torch.float32) - 1.0
-        lo = torch.full((), minval, dtype=torch.float32, device=key.device)
-        hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
-        return torch.maximum(lo, _fma_f32(floats, hi - lo, lo))
+        if key.device.type == "cpu":
+            return uniform_twin(key, shape, minval, maxval)
+        _check_key(key)
+        out = torch.empty(tuple(int(s) for s in shape), dtype=torch.float32, device=key.device)
+        if out.numel() > 0:
+            _build.load_kernels().threefry_uniform(key, out, float(minval), float(maxval))
+            uniform.launches += 1
+        return out
+
+
+uniform.launches = 0

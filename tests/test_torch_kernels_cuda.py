@@ -18,9 +18,12 @@ exact and they agree bit for bit. K2 is one launch a call, whose tiles
 pass the open segment on by a look-back through a per-stream workspace
 that is never cleared; the tests below run it where the look-back goes
 deep (long segments), across calls and sizes that reuse the workspace,
-and with the ancestor sum's gathers fused.
+and with the ancestor sum's gathers fused. K3, the threefry draws of
+random.py, equals its int64 twin bit for bit (integer rounds, one explicit
+FMA), one launch a draw and no sync.
 """
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -29,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from stereomatch_tpu_torch import random as trandom
 from stereomatch_tpu_torch.ops.mst_scan_cuda import (
     ancestor_sums, ancestor_sums_twin, lookback_counts, segmented_cumsum, segmented_cumsum_twin,
 )
@@ -364,31 +368,58 @@ def test_ancestor_sums_vs_twin_real_forest(cuda, k):
     assert torch.equal(segmented_cumsum(vi, f["seg_root"]), segmented_cumsum_twin(vi, f["seg_root"]))
 
 
-def _device_kernels(fn):
-    """Names of the device kernels that one call of fn launches, from
-    torch.profiler's CUDA events."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()  # warm: the workspace is allocated on the first call
+_COUNT_KERNELS = """
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+names = []
+for fn in calls:
+    fn()  # warm: K2's workspace is allocated on the first call
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names.append([e.name for e in prof.events() if e.device_type == DeviceType.CUDA])
+print(json.dumps(names))
+"""
+
+
+def _kernels_a_call(script):
+    """For each of the `calls` that `script` builds, the names of the device
+    kernels one call launches, from torch.profiler's CUDA events in a fresh
+    process: on the H100 the profiler's device times drift from the host's
+    by milliseconds as a process ages (0.09 ms to 2.1 ms within 47 s), and a
+    session of a few microseconds late in a long process has then held no
+    device event."""
+    out = subprocess.run([sys.executable, "-c", script + _COUNT_KERNELS], capture_output=True,
+                         text=True, timeout=600, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+_K2_CALLS = """
+import sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_kernels_cuda import _EULER, _real_forest
+from stereomatch_tpu_torch.ops.mst_scan_cuda import ancestor_sums, segmented_cumsum
+cuda = torch.device("cuda")
+f = _real_forest(cuda, 120, 160)
+n = f["in_pos"].shape[0]
+x = torch.rand((7, 2 * n), device=cuda)
+v = torch.rand((7, n), device=cuda)
+euler = [f[key] for key in _EULER]
+calls = [lambda: segmented_cumsum(x, f["euler_reset"]), lambda: ancestor_sums(v, *euler),
+         lambda: segmented_cumsum(v[0], f["seg_root"])]
+"""
 
 
 @pytest.mark.cuda
 def test_k2_one_kernel_per_call(cuda):
     """Each wrapper call is one device kernel: no memset, no copy, no
     second phase, for the plain scan and the fused ancestor sum."""
-    f = _real_forest(cuda, 120, 160)
-    n = f["in_pos"].shape[0]
-    x = torch.rand((7, 2 * n), device=cuda)
-    v = torch.rand((7, n), device=cuda)
-    euler = [f[key] for key in _EULER]
-    for fn in (lambda: segmented_cumsum(x, f["euler_reset"]), lambda: ancestor_sums(v, *euler),
-               lambda: segmented_cumsum(v[0], f["seg_root"])):
-        names = _device_kernels(fn)
+    for names in _kernels_a_call(_K2_CALLS):
         assert len(names) == 1 and "seg_scan_kernel" in names[0], names
 
 
@@ -453,6 +484,14 @@ euler = [raw[k] for k in ("euler_src", "euler_is_in", "euler_reset", "in_pos")]
 v = torch.from_numpy(rng.integers(-8, 9, (7, 31 * 45)).astype(np.float32)).cuda()
 assert torch.equal(ancestor_sums(v, *euler), ancestor_sums_twin(v, *euler))
 assert (aggregate_8path_cuda.launches, segmented_cumsum.launches, ancestor_sums.launches) == (1, 1, 1)
+from stereomatch_tpu_torch import random as trandom
+key = trandom.PRNGKey(3, "cuda")
+assert torch.equal(trandom.split(key, 7).cpu(), trandom.split_twin(key.cpu(), 7))
+assert torch.equal(trandom.fold_in(key, 2**32 - 1).cpu(), trandom.fold_in_twin(key.cpu(), 2**32 - 1))
+u = trandom.uniform(key, (4, 1001), -1.0, 1.0).cpu()
+assert torch.equal(u.view(torch.int32),
+                   trandom.uniform_twin(key.cpu(), (4, 1001), -1.0, 1.0).view(torch.int32))
+assert (trandom.split.launches, trandom.fold_in.launches, trandom.uniform.launches) == (1, 1, 1)
 """
 
 
@@ -460,11 +499,120 @@ assert (aggregate_8path_cuda.launches, segmented_cumsum.launches, ancestor_sums.
 def test_nvcc_route_builds_both_kernels(cuda, tmp_path):
     """The build route taken where ninja is missing: one nvcc command. In a
     fresh process (one extension module of a name per process), every
-    wrapper (K1, K2 and K2's ancestor sum) runs on the module it builds and
-    agrees with its twin."""
+    wrapper (K1, K2 and K2's ancestor sum, K3's split, fold_in and uniform)
+    runs on the module it builds and agrees with its twin."""
     out = subprocess.run([sys.executable, "-c", _NVCC_ROUTE, str(tmp_path)],
                          capture_output=True, text=True, timeout=600, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+# K3: keys with both words set, the high bit set, and a split child
+K3_SEEDS = [0, 123456, -1, 2**31 - 1]
+K3_SHAPES = [(0,), (1,), (15731,), (4, 15731), (3145728,), (4, 96, 128)]
+K3_RANGES = [(0.0, 1.0), (-1.0, 1.0), (0.0, 100.0), (2.0, 9.5)]
+
+
+def _k3_keys():
+    keys = [trandom.PRNGKey(s, "cpu") for s in K3_SEEDS]
+    return keys + [trandom.split_twin(keys[1], 3)[2]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 2, 3, 7, 1000])
+def test_k3_split_bitwise_vs_twin(cuda, num):
+    for key in _k3_keys():
+        before = trandom.split.launches
+        got = trandom.split(key.to(cuda), num)
+        assert trandom.split.launches == before + 1
+        assert got.dtype == torch.int64 and got.shape == (num, 2) and got.is_cuda
+        assert torch.equal(got.cpu(), trandom.split_twin(key, num))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [0, 1, 2**31, 2**32 - 1])
+def test_k3_fold_in_bitwise_vs_twin(cuda, data):
+    for key in _k3_keys():
+        got = trandom.fold_in(key.to(cuda), data)
+        assert got.dtype == torch.int64 and got.shape == (2,)
+        assert torch.equal(got.cpu(), trandom.fold_in_twin(key, data))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", K3_RANGES)
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
+def test_k3_uniform_bitwise_vs_twin(cuda, shape, lo, hi):
+    """Every bit of every draw, as int32 views (0.0 and -0.0 differ)."""
+    keys = _k3_keys()
+    for key in keys if np.prod(shape) < 10**6 else keys[1:3]:
+        got = trandom.uniform(key.to(cuda), shape, lo, hi)
+        assert got.dtype == torch.float32 and got.shape == shape
+        want = trandom.uniform_twin(key, shape, lo, hi)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        if got.numel():
+            assert lo <= got.min().item() and got.max().item() <= hi
+
+
+@pytest.mark.cuda
+def test_k3_key_chain_like_the_optimizer(cuda):
+    """The chain mst_pms_optimize and make_candidate_fn walk on the card:
+    split, per-iteration split, split in 3, fold_in, split, uniform."""
+    k, kt = trandom.PRNGKey(3, cuda), trandom.PRNGKey(3, "cpu")
+    k, _ = trandom.split(k)
+    kt, _ = trandom.split_twin(kt)
+    for ki, kti in zip(trandom.split(k, 4), trandom.split_twin(kt, 4)):
+        ka, kb, kc = trandom.split(ki, 3)
+        kta, ktb, ktc = trandom.split_twin(kti, 3)
+        for j in range(2):
+            k1, k2 = trandom.split(trandom.fold_in(ka, j))
+            kt1, kt2 = trandom.split_twin(trandom.fold_in_twin(kta, j))
+            for a, b in ((k1, kt1), (k2, kt2)):
+                assert torch.equal(trandom.uniform(a, (15731,)).cpu(),
+                                   trandom.uniform_twin(b, (15731,)))
+        assert torch.equal(trandom.uniform(kb, (15731,)).cpu(), trandom.uniform_twin(ktb, (15731,)))
+        r = trandom.uniform(trandom.fold_in(kc, 2), (4, 15731), -1.0, 1.0)
+        rt = trandom.uniform_twin(trandom.fold_in_twin(ktc, 2), (4, 15731), -1.0, 1.0)
+        assert torch.equal(r.cpu(), rt)
+
+
+_K3_CALLS = """
+from stereomatch_tpu_torch import random as trandom
+key = trandom.split(trandom.PRNGKey(7, "cuda"), 3)[1]
+calls = [lambda: trandom.split(key), lambda: trandom.split(key, 1000),
+         lambda: trandom.fold_in(key, 2**32 - 1), lambda: trandom.uniform(key, (15731,)),
+         lambda: trandom.uniform(key, (4, 15731), -1.0, 1.0),
+         lambda: trandom.uniform(key, (3145728,))]
+"""
+
+
+@pytest.mark.cuda
+def test_k3_one_kernel_per_call_and_no_sync(cuda):
+    """Each split, fold_in or uniform on a CUDA key is one device kernel
+    (the output is allocated, never filled) and makes no host sync."""
+    for names in _kernels_a_call(_K3_CALLS):
+        assert len(names) == 1 and "threefry_kernel" in names[0], names
+    scope = {}
+    exec(_K3_CALLS, scope)
+    for fn in scope["calls"]:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in scope["calls"]:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_rejects(cuda):
+    key = trandom.PRNGKey(1, cuda)
+    for bad in (key.int(), key[:1], torch.zeros((2, 2), dtype=torch.int64, device=cuda)):
+        with pytest.raises(TypeError):
+            trandom.split(bad)
+        with pytest.raises(TypeError):
+            trandom.uniform(bad, (3,))
+    assert trandom.uniform(key, (0, 5)).shape == (0, 5)
+    assert trandom.split(key, 0).shape == (0, 2)
 
 
 @pytest.mark.cuda

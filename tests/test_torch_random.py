@@ -69,3 +69,85 @@ def test_bad_seed_and_key():
     with pytest.raises(ValueError):
         key_from_jax(np.zeros(3, np.uint32))
     assert trandom.PRNGKey(0, "cpu").dtype == torch.int64
+
+
+# ---- an independent spec: threefry-2x32 on Python ints ----
+
+_M = 0xFFFFFFFF
+
+
+def _threefry_spec(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+    """Threefry-2x32, 20 rounds (Salmon et al., SC'11), one block in Python
+    ints masked to 32 bits."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & _M, (x1 + ks[1]) & _M
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & _M
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M
+    return x0, x1
+
+
+# Random123's known answers for threefry2x32_20: (key, counter) -> output
+_KAT = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+        ((_M, _M), (_M, _M), (0x1CB996FC, 0xBB002BE7)),
+        ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))]
+_SPEC_KEYS = [(0, 0), (0, 42), (0x9E3779B9, 0x7F4A7C15), (_M, 1)]
+
+
+@pytest.mark.parametrize("key,ctr,want", _KAT)
+def test_spec_and_twin_give_the_known_answers(key, ctr, want):
+    assert _threefry_spec(*key, *ctr) == want
+    y = trandom.threefry2x32(*(torch.tensor(v, dtype=torch.int64) for v in key + ctr))
+    assert tuple(int(v) for v in y) == want
+
+
+@pytest.mark.parametrize("key", _SPEC_KEYS)
+def test_twin_split_and_fold_in_equal_the_spec(key):
+    kt = torch.tensor(key, dtype=torch.int64)
+    assert trandom.split_twin(kt, 5).tolist() == [list(_threefry_spec(*key, 0, i))
+                                                   for i in range(5)]
+    for data in (0, 1, 2**31, _M):
+        assert trandom.fold_in_twin(kt, data).tolist() == list(_threefry_spec(*key, 0, data))
+
+
+@pytest.mark.parametrize("key", _SPEC_KEYS)
+def test_twin_bits_split_the_counter_at_32_bits(key):
+    """The bits at flat index i are y0 ^ y1 of threefry(k, (i >> 32, i & M)),
+    also at and above 2^32, where the high word takes part."""
+    idx = [0, 1, 77, _M, 2**32, 2**32 + 5, 2**40 + 3]
+    got = trandom._bits_at(torch.tensor(key, dtype=torch.int64), torch.tensor(idx))
+    want = [a ^ b for a, b in (_threefry_spec(*key, i >> 32, i & _M) for i in idx)]
+    assert got.tolist() == want
+    bits = trandom._random_bits32(torch.tensor(key, dtype=torch.int64), (3, 4))
+    assert bits.flatten().tolist() == [a ^ b for a, b in (_threefry_spec(*key, 0, i)
+                                                         for i in range(12))]
+
+
+def test_cpu_keys_take_the_twin(monkeypatch):
+    """A CPU key never reaches the kernel module: the draws equal the
+    twins' and no launch is counted."""
+    def no_kernels(*a, **k):
+        raise AssertionError("a CPU key reached the kernels")
+
+    monkeypatch.setattr(trandom._build, "load_kernels", no_kernels)
+    counts = (trandom.split.launches, trandom.fold_in.launches, trandom.uniform.launches)
+    k = trandom.PRNGKey(11, "cpu")
+    assert torch.equal(trandom.split(k, 3), trandom.split_twin(k, 3))
+    assert torch.equal(trandom.fold_in(k, 9), trandom.fold_in_twin(k, 9))
+    assert torch.equal(trandom.uniform(k, (2, 9), -1.0, 1.0),
+                       trandom.uniform_twin(k, (2, 9), -1.0, 1.0))
+    assert (trandom.split.launches, trandom.fold_in.launches, trandom.uniform.launches) == counts
+
+
+def test_keys_off_the_cpu_never_take_the_twin():
+    """Off the CPU a key goes to the kernel or raises: a meta key (no CUDA
+    device, no data) is refused, not drawn by the twin."""
+    k = torch.zeros(2, dtype=torch.int64, device="meta")
+    for draw in (lambda: trandom.split(k), lambda: trandom.fold_in(k, 1),
+                 lambda: trandom.uniform(k, (3,))):
+        with pytest.raises(ValueError, match="K3"):
+            draw()

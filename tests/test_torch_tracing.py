@@ -359,3 +359,40 @@ def test_banded_sgbm_spans_on_the_card(cuda):
                    if e.name in ("sm.sgbm.band", "sm.sgbm.band_up"))
     assert len(k1c) == len(bands) == 2 * 4 - 1
     assert all(k >= s for k, s in zip(k1c, bands))
+
+
+@pytest.mark.cuda
+def test_refine_iteration_draws_one_launch_a_rng_call(cuda):
+    """A traced pair frame on the card: inside each refine iteration every
+    `sm.rng` span (a split, fold_in or uniform) holds exactly one launch,
+    K3's, and the iteration's draws hold at most 25. This is the engagement
+    that `refine.rng_launches_per_frame` reads."""
+    from torch.autograd import DeviceType
+
+    sc = render_scene(1, H, W, D)
+    srv = compile_sgbm_mst_server(H, W, capacity=1, **dict(KW, device=cuda))
+    srv.collect(srv.submit_pair(sc.left, sc.right))  # build and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        srv.collect(srv.submit_pair(sc.left, sc.right))
+        torch.cuda.synchronize()
+    rows = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CPU]
+    spans = sorted((s, e, n) for n, s, e in rows if n.startswith("sm."))
+    launches = [s for n, s, _ in rows if n in pspans.LAUNCHES]
+
+    def innermost(t):
+        held = [(e - s, n) for s, e, n in spans if s <= t < e]
+        return min(held)[1] if held else None
+
+    iters = [(s, e) for s, e, n in spans if n == "sm.refine.iter"]
+    assert len(iters) == 2 * KW["fine_iterations"]
+    for a, b in iters:
+        draws = [(s, e) for s, e, n in spans if n == "sm.rng" and a <= s < b]
+        for s, e in draws:
+            assert sum(s <= t < e for t in launches) == 1
+        in_rng = [t for t in launches if a <= t < b and innermost(t) == "sm.rng"]
+        assert 0 < len(in_rng) == len(draws) <= 25
+    threefry = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA and "threefry_kernel" in e.name]
+    assert threefry
