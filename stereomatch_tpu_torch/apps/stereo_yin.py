@@ -34,7 +34,7 @@ from ..io import (
 )
 from ..ops.cost import adgrad_bgr_volumes, bgr_to_gray
 from ..ops.filters import guided_filter_volume
-from ..utils import StageTimer
+from ..utils import StageTimer, span
 from .stereo_test import load_pair, rectify_pair
 
 
@@ -47,8 +47,9 @@ def builtin_cost_volumes(rl: torch.Tensor, rr: torch.Tensor, max_disp: int, guid
     lvol, rvol = adgrad_bgr_volumes(bgr_l, bgr_r, vcfg)
     if guided:
         g = GuidedFilterConfig()
-        lvol = guided_filter_volume(bgr_to_gray(bgr_l), lvol, g.radius, g.eps, g.slab)
-        rvol = guided_filter_volume(bgr_to_gray(bgr_r), rvol, g.radius, g.eps, g.slab)
+        with span("sm.volume.guided"):
+            lvol = guided_filter_volume(bgr_to_gray(bgr_l), lvol, g.radius, g.eps, g.slab)
+            rvol = guided_filter_volume(bgr_to_gray(bgr_r), rvol, g.radius, g.eps, g.slab)
     scale = 0.5 / float(vcfg.bad_cost)
     return torch.clamp(lvol * scale, max=0.5), torch.clamp(rvol * scale, max=0.5)
 

@@ -35,6 +35,7 @@ SPANS = frozenset({
     "sm.server.collect",  # a served frame's outputs to the host, LR stat, failure replay
     "sm.server.scene_cut",  # the video server's keyframe replay of a scene cut
     "sm.volume",  # a served frame's cost volumes
+    "sm.volume.guided",  # the guided filter of both views' volumes (builtin_cost_volumes)
     "sm.sgbm",  # the SGBM seed of a 3DMST frame; the whole of sgbm_pipeline
     "sm.sgbm.gray",  # sgbm_pipeline: one view to gray on the host, then uploaded
     "sm.sgbm.speckle",  # sgbm_pipeline: the speckle filter

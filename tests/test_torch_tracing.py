@@ -152,8 +152,26 @@ def test_pair_frames_span_counts(pair_trace):
     assert per_frame["sm.server.submit"] == per_frame["sm.server.collect"] == 1
     assert per_frame["sm.volume"] == per_frame["sm.sgbm"] == 1
     assert per_frame["sm.forest"] == per_frame["sm.refine"] == 2
+    assert "sm.volume.guided" not in per_frame  # the raw volume is not filtered
     assert per_frame["sm.refine.iter"] == 2 * KW["fine_iterations"]
     assert per_frame["sm.forest.round"] > 10  # host-checked rounds of both views
+
+
+def test_guided_pair_frames_open_the_guided_span_once_a_frame():
+    """The server's default volume: both views' guided filters inside one
+    `sm.volume.guided` a frame, nested in `sm.volume`."""
+    scenes = [render_scene(s, H, W, D) for s in (1, 2)]
+    srv = compile_sgbm_mst_server(H, W, capacity=2, **dict(KW, volume_guided=True))
+    srv.collect(srv.submit_pair(scenes[0].left, scenes[0].right))  # warm
+
+    def serve():
+        tickets = [srv.submit_pair(sc.left, sc.right) for sc in scenes]
+        return [srv.collect(t) for t in tickets]
+
+    prof, _ = _traced(serve)
+    names = _names(prof)
+    assert names.count("sm.volume.guided") == names.count("sm.volume") == 2
+    assert {_enclosing(e) for e in _events(prof) if e.name == "sm.volume.guided"} == {"sm.volume"}
 
 
 def test_video_keyframe_builds_forests_and_the_temporal_frame_none():
@@ -297,6 +315,35 @@ def test_every_new_reader_has_an_entry():
     for name in HAND:
         assert entries[name]["source"] == "device_trace" and entries[name]["better"] == "lower"
         assert entries[name]["moves"] == "frames_per_s"
+
+
+GUIDED_READERS = ("volume.guided_launches_per_frame", "volume.guided_idle_ms_per_frame",
+                  "volume.guided_roofline")
+
+
+def test_guided_readers_on_a_hand_built_trace():
+    """A guided filter span inside each frame's sm.volume: its launches at
+    3, 5 and 53 us, its idle (3, 5) and (53, 59) us. The volume layer's
+    charges are unchanged, the span being of its layer."""
+    tr = _hand_trace()
+    tr.cpu_ops = tr.cpu_ops + [_op("sm.volume.guided", 3, 9), _op("sm.volume.guided", 53, 59)]
+    assert _read("volume.guided_launches_per_frame", tr) == 1.5
+    assert _read("volume.guided_idle_ms_per_frame", tr) == 4.0 / 1e3
+    for name in ("volume.launches_per_frame", "volume.idle_ms_per_frame"):
+        assert _read(name, tr) == HAND[name]
+    # 11 launch calls and 4 kernels do not pair one to one: no roofline
+    assert _read("volume.guided_roofline", tr) is None
+
+
+@pytest.mark.parametrize("name", GUIDED_READERS)
+def test_guided_reader_without_the_guided_span_reads_nothing(name):
+    """A raw frame, a program that opens no guided span, and no trace."""
+    assert _read(name, _hand_trace()) is None and _read(name, None) is None
+    import json
+
+    entry = {m["name"]: m for m in json.loads(
+        (ROOT / "BENCHMARK.json").read_text())["per_layer"]}[name]
+    assert entry["layer"] == "cost volumes" and entry["workloads"] == ["mst_pairs_guided"]
 
 
 def test_layers_and_unattributed_sum_to_the_totals():
