@@ -11,7 +11,8 @@ Euler scans and its fused ancestor sum on a real device forest at 7 rows,
 and on the host forest of the flat path at its 18 rows, at max_log_range
 4 and 40, within rtol 1e-5 / atol 1e-4; K3's threefry split, fold_in and
 uniform bit for bit at the refine's tree count and at one draw a node, both
-at 2048x1536), times each beside its bound (the
+at 2048x1536; K4's guided filter of a 1536x2048x100 volume within 1e-4 of
+its eager twin, one device kernel a call), times each beside its bound (the
 ancestor sum also beside the composition it replaces, with the share of
 K2's tiles whose look-back went past the tile before, and holds each K2
 call and each K3 draw to one device kernel in torch.profiler's events), then serves 3
@@ -69,8 +70,8 @@ is on record): the frame-parallel SGBM (K1), the row-tiled and (tile_y,
 tile_x, dslab) cost-volume pipelines, the slab WTA, the band-pipelined SGBM
 (K1c) at 2048x1536x256 and both 3DMST meshes (K2, K2a), each held to its
 one-process counterpart (`parallel_paths`). Every path's K1 / K1c / K2 /
-K2a / K3 launches are counted and held to its frame mix (K3: the draws of
-its engines' key chains). Also reports whether the server gives
+K2a / K3 / K4 launches are counted and held to its frame mix (K3: the draws of
+its engines' key chains; K4: 2 a guided frame or call). Also reports whether the server gives
 the same maps twice for the same frame and seed. The band check holds
 the band-streamed SGBM equal to the whole frame on every pixel of the
 integer gray. Fails (non-zero exit,
@@ -205,18 +206,28 @@ CLI_ALGORITHMS = ("bm", "sgbm", "hh", "sgbm3way", "census", "costvolume", "mst",
                   "pm", "coupled")
 CLI_CLOUDS = (".ply", ".pcd", ".xyz")
 CLI_K1 = ("sgbm", "hh", "sgbm3way", "sgbm_mst")
+# the CLI's algorithms on guided-filtered volumes (K4 once a view)
+CLI_GUIDED = ("costvolume", "mst", "sgbm_mst", "coupled")
 # mst: MSTConfig(max_disp=64)'s 100 iterations; sgbm_mst: the seed's cost +
 # its 10 fine iterations; 2 views and 3 scans of each kind a tree filter
 CLI_K2 = {"mst": 600, "sgbm_mst": 66}
 # K3 (random.py's threefry draws), launches a call: the 3DMST key chain in
 # k3_optimize, PatchMatch's and the coupled engine's in k3_patchmatch and
-# k3_coupled; every other engine draws nothing
-K3_NONE = {"K3": 0}
+# k3_coupled; every other engine draws nothing. K4 (the guided filter of a
+# volume, ops/filters.py::guided_filter_volume) launches once a view whose
+# built-in or cost-volume-pipeline volume is guided-filtered inside the
+# count: 2 a guided frame or call, 0 elsewhere
+K3_K4_NONE = {"K3": 0, "K4": 0}
 # K3 beside its int64 twin at the 3DMST cells' 2048x1536: the refine's draws
 # (a tree each, the tree capacity) and one draw a node, as init_labels makes them
 K3_FRAME = (1536, 2048)
 K3_NODES = K3_FRAME[0] * K3_FRAME[1]
 K3_RANGES = ((0.0, 1.0), (-1.0, 1.0), (0.0, 100.0), (2.0, 9.5))
+# K4 beside its eager twin at the guided cell's 1536x2048x100, the left view
+# of the band scene, held to the twin run in float64 within
+# tests/test_torch_guided_volume.py's ATOL_COST
+K4_SHAPE = (1536, 2048, 100)
+K4_ATOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 outside the
 # tensor cores; a kernel's bound is the larger of its bytes (each input
 # read once, each output written once) and its operations over these
@@ -522,35 +533,127 @@ def k3_cases(tmax, dev) -> dict:
             "shape": [K3_NODES], "draws": rows}
 
 
+K4_PROFILE = f"""
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from stereomatch_tpu_torch.ops.filters import guided_filter_volume
+dev = torch.device("cuda")
+h, w, d = {K4_SHAPE}
+g = torch.rand((h, w), device=dev) * 255
+v = torch.rand((h, w, d), device=dev) * 3
+guided_filter_volume(g, v, 9, 6.5025)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    guided_filter_volume(g, v, 9, 6.5025)
+    torch.cuda.synchronize()
+ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+print(json.dumps([[e.name, e.time_range.elapsed_us()] for e in ev]))
+"""
+
+
+def k4_kernels_a_call() -> tuple[list[str], float]:
+    """(names of the device kernels, their summed device ms) of one K4 call
+    at K4_SHAPE, from torch.profiler in a fresh process: late in a long
+    process, and now and then early, a short trace has held no device
+    event on the H100 (tests/test_torch_kernels_cuda.py::_kernels_a_call)."""
+    out = subprocess.run([sys.executable, "-c", K4_PROFILE], capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"K4's profile failed: {out.stderr[-3000:]}")
+    events = json.loads(out.stdout.strip().splitlines()[-1])
+    return [n for n, _ in events], sum(us for _, us in events) / 1e3
+
+
+def k4_cases(scene, dev) -> dict:
+    """K4 on the left view of `scene` at K4_SHAPE: the adgrad volume and
+    gray guide, as the servers' guided volume filters them, within K4_ATOL
+    of its eager twin run in float64 (and beside the float32 twin, whose
+    cumsum differences round by more at this size); one device kernel a call
+    (profiler, in a fresh process); timed by CUDA events beside its bound (the
+    volume and guide read once, the filtered volume written once) and beside
+    the float32 twin. Returns the kernel line's K4 entry."""
+    from stereomatch_tpu_torch.config import CostVolumeConfig, GuidedFilterConfig
+    from stereomatch_tpu_torch.ops.cost import adgrad_bgr_volumes, bgr_to_gray
+    from stereomatch_tpu_torch.ops.filters import guided_filter_volume, guided_filter_volume_twin
+
+    h, w, d = K4_SHAPE
+    g = GuidedFilterConfig()
+    bl, br = (torch.from_numpy(np.ascontiguousarray(x[:h, :w])).float().to(dev)
+              for x in (scene.left, scene.right))
+    vol = adgrad_bgr_volumes(bl, br, CostVolumeConfig(min_disp=0, max_disp=d - 1))[0]
+    guide = bgr_to_gray(bl)
+    del br
+
+    def kernel():
+        return guided_filter_volume(guide, vol, g.radius, g.eps, g.slab)
+
+    def twin():
+        return guided_filter_volume_twin(guide, vol, g.radius, g.eps, g.slab)
+
+    got = kernel()
+    exact = guided_filter_volume_twin(guide.double(), vol.double(), g.radius, g.eps, g.slab)
+    err = (got.double() - exact).abs().max().item()
+    twin_err = (twin().double() - exact).abs().max().item()
+    del exact
+    f32 = (got - twin()).abs().max().item()
+    del got
+    if not err <= K4_ATOL:
+        raise AssertionError(f"K4 {K4_SHAPE}: max |diff| {err:.3g} from its twin in float64, "
+                             f"over {K4_ATOL}")
+    names, busy = k4_kernels_a_call()
+    if len(names) != 1 or "guided_filter_kernel" not in names[0]:
+        raise AssertionError(f"K4: device kernels of a call {names}, not one K4")
+    ms, plain = cuda_time_ms(kernel, 20), cuda_time_ms(twin, 3)
+    # about 26 float operations an element: the vertical and horizontal
+    # slides of p and g p, a and b, the slides of a and b, the output
+    bms, by = bound((2 * d + 1) * h * w * 4, 26.0 * h * w * d)
+    log(f"K4 {K4_SHAPE} guided filter (radius {g.radius}, eps {g.eps}): within {K4_ATOL} of its "
+        f"twin in float64 (max |diff| {err:.3g}; the float32 twin's {twin_err:.3g}, K4 against "
+        f"the float32 twin {f32:.3g}); one device kernel a call, {busy:.3f} ms of it (profiler); "
+        f"kernel {ms:.3f} ms (CUDA events), bound {bms:.3f} ms ({by}, {bms / ms:.1%} of it), "
+        f"twin {plain:.3f} ms")
+    return {"name": "guided_filter_kernel", "route": "cuda",
+            "source": "stereomatch_tpu_torch/csrc/guided_filter.cu",
+            "replaces": "none: the eager box filters of ops/filters.py::guided_filter_volume_twin",
+            "max_abs_err": err, "twin_f32_err": twin_err, "vs_twin_f32": f32,
+            "ms": ms, "kernel_ms": busy, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "shape": list(K4_SHAPE)}
+
+
 def counted(run):
     """Run one path with every launch counter set to 0 just before it;
     returns (its result, the counts just after it)."""
     from stereomatch_tpu_torch import random as trandom
+    from stereomatch_tpu_torch.ops.filters import guided_filter_volume
     from stereomatch_tpu_torch.ops.mst_scan_cuda import ancestor_sums, segmented_cumsum
     from stereomatch_tpu_torch.ops.sgbm_cuda import aggregate_8path_cuda, aggregate_paths_cuda
 
     draws = (trandom.split, trandom.fold_in, trandom.uniform)
     for fn in (aggregate_8path_cuda, aggregate_paths_cuda, segmented_cumsum, ancestor_sums,
-               *draws):
+               guided_filter_volume, *draws):
         fn.launches = 0
     out = run()
     return out, {"K1": aggregate_8path_cuda.launches, "K1c": aggregate_paths_cuda.launches,
                  "K2": segmented_cumsum.launches, "K2a": ancestor_sums.launches,
-                 "K3": sum(fn.launches for fn in draws)}
+                 "K3": sum(fn.launches for fn in draws), "K4": guided_filter_volume.launches}
 
 
-def expect_launches(tag, got, keys, temporals):
+def expect_launches(tag, got, keys, temporals, guided=0):
     """The servers' frames: a keyframe refines 4 iterations from 2 px, a
-    temporal frame 2 from 4 px, 2 neighbour trees each."""
-    key = {**KEY_LAUNCHES, "K3": k3_frame(4, 2, 2.0)}
-    temporal = {**TEMPORAL_LAUNCHES, "K3": k3_frame(2, 2, 4.0)}
+    temporal frame 2 from 4 px, 2 neighbour trees each; `guided` of them
+    on the guided volume (K4 once a view)."""
+    key = {**KEY_LAUNCHES, "K3": k3_frame(4, 2, 2.0), "K4": 0}
+    temporal = {**TEMPORAL_LAUNCHES, "K3": k3_frame(2, 2, 4.0), "K4": 0}
     want = {k: keys * key[k] + temporals * temporal[k] for k in got}
+    want["K4"] = 2 * guided
     expect_exact(tag, got, want, f"{keys} keyframes + {temporals} temporal frames")
 
 
 def expect_exact(tag, got, want, mix):
-    """`want` gives K1, K1c, K2 and K2a; K3 where the path draws (else 0)."""
-    want = {**K3_NONE, **want}
+    """`want` gives K1, K1c, K2 and K2a; K3 where the path draws and K4
+    where it guided-filters volumes (else 0)."""
+    want = {**K3_K4_NONE, **want}
     if got != want:
         raise AssertionError(f"{tag}: launches {got}, expected {want} for {mix}")
     log(f"{tag}: launches {got} (K2 calls {got['K2'] + got['K2a']}) = {mix}")
@@ -603,7 +706,8 @@ def video_path(cfg, dev) -> dict:
                 for i in range(len(scenes))]
         if kinds != want:
             raise AssertionError(f"{name}: keyframes at {kinds}, expected {want}")
-        expect_launches(name, launches[name], sum(kinds), len(kinds) - sum(kinds))
+        expect_launches(name, launches[name], sum(kinds), len(kinds) - sum(kinds),
+                        guided=len(kinds) if name == "video_guided_rebuild" else 0)
 
     # one hard cut: the mirrored scene after scene 0
     srv = servers["video_cut"]
@@ -664,7 +768,7 @@ def host_forest_paths(scene, dev) -> dict:
     log(f"flat frame (mst_pipeline, {cfg.iterations} random-init iterations, host forest): "
         f"{sec:.3f} s, {gate(*maps, scene, GATES, 'flat frame')}")
     expect_exact("flat", launches["flat"],
-                 {**FLAT_LAUNCHES, "K3": k3_frame(cfg.iterations, 8, random_init=True)},
+                 {**FLAT_LAUNCHES, "K3": k3_frame(cfg.iterations, 8, random_init=True), "K4": 2},
                  f"2 views x {cfg.iterations} iterations x 3")
 
     # the flat frame's left view, stage by stage (host clock + sync)
@@ -688,7 +792,7 @@ def host_forest_paths(scene, dev) -> dict:
     log(f"seeded frame on the host forest (sgbm_mst_pipeline, 10 iterations): {sec:.3f} s, "
         f"{gate(*maps, scene, GATES, 'seeded host frame')}")
     expect_exact("seeded_host", launches["seeded_host"],
-                 {**SEEDED_HOST_LAUNCHES, "K3": k3_frame(10, 2, 2.0)},
+                 {**SEEDED_HOST_LAUNCHES, "K3": k3_frame(10, 2, 2.0), "K4": 2},
                  "1 SGBM seed + 2 views x (1 seed cost + 10 iterations) x 3")
 
     # the built-in guided volumes, as mst_pipeline makes them, outside the count
@@ -755,7 +859,8 @@ def classic_paths(scene, dev) -> dict:
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         expect_exact(path, launches[path],
-                     {"K1": int(name == "sgbm"), "K1c": 0, "K2": 0, "K2a": 0}, "one call")
+                     {"K1": int(name == "sgbm"), "K1c": 0, "K2": 0, "K2a": 0,
+                      "K4": 2 * (name == "costvolume")}, "one call")
         secs = []
         for _ in range(CLASSIC_TIMED):
             torch.cuda.synchronize()
@@ -843,7 +948,8 @@ def patchmatch_paths(scene, dev) -> dict:
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         expect_exact(name, launches[name], {"K1": 0, "K1c": 0, "K2": 0, "K2a": 0,
-                                            "K3": k3_draws[name]}, "one call")
+                                            "K3": k3_draws[name],
+                                            "K4": 2 * (name == "coupled_patchmatch")}, "one call")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         maps.append(run())
@@ -1300,7 +1406,7 @@ def apps_paths(band_scene, dev) -> dict:
         lambda: stereo_yin.run(data, 21, rig_xml, out, **YIN_RUN, device=dev)))
     yin_k3 = {**YIN_LAUNCHES, "K3": k3_frame(YIN_RUN["iterations"], 8, max_disp=YIN_RUN["max_disp"],
                                             random_init=True)}
-    expect_exact("stereo_yin", launches["stereo_yin"], yin_k3,
+    expect_exact("stereo_yin", launches["stereo_yin"], {**yin_k3, "K4": 2},
                  f"2 views x {YIN_RUN['iterations']} iterations x 3")
     # the LR check zeroes what it rejects and the app clamps to 10: score
     # the pixels above the clamp
@@ -1332,7 +1438,7 @@ def apps_paths(band_scene, dev) -> dict:
         ((disp, _), sec, _), launches[path] = counted(lambda: timed(
             lambda: stereo_yin.run(data, 21, rig_xml, out, **YIN_RUN, scale=0.25,
                                    mccnn_dir=mc_dir, verbose=False, device=dev)))
-        expect_exact(path, launches[path], yin_k3,
+        expect_exact(path, launches[path], {**yin_k3, "K4": 2 * (route == "builtin")},
                      f"2 views x {YIN_RUN['iterations']} iterations x 3")
         quarter[route] = (disp, sec)
     if not np.array_equal(quarter["builtin"][0], quarter["mccnn"][0]):
@@ -1363,6 +1469,7 @@ def apps_paths(band_scene, dev) -> dict:
             for k in STREAM_KEY}
     # 8 neighbour trees; keyframes 4 iterations from 2 px, temporal 2 from 4 px
     want["K3"] = sum(k3_frame(4, 8, 2.0) if key else k3_frame(2, 8, 4.0) for key in keys)
+    want["K4"] = 2 * len(keys)  # the built-in guided volumes of every frame
     expect_exact("stream_run_mst", launches["stream_run_mst"], want,
                  f"{sum(keys)} keyframes + {len(keys) - sum(keys)} temporal frames, no scene cut")
     digits = []
@@ -1422,7 +1529,8 @@ def apps_paths(band_scene, dev) -> dict:
              "-p", cloud, "--device", str(dev)])))
         k2 = CLI_K2.get(alg, 0)
         expect_exact(path, launches[path], {"K1": int(alg in CLI_K1), "K1c": 0, "K2": k2,
-                                            "K2a": k2, "K3": cli_k3.get(alg, 0)}, "one call")
+                                            "K2a": k2, "K3": cli_k3.get(alg, 0),
+                                            "K4": 2 * (alg in CLI_GUIDED)}, "one call")
         if rc != 0 or not os.path.exists(cloud) or os.path.getsize(cloud) == 0:
             raise AssertionError(f"cli {alg}: rc {rc}, cloud file missing or empty")
         if load_image(png, gray=True).shape != (ch, cw):
@@ -1442,8 +1550,9 @@ def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
     config (K1 twice; maps bit-equal to sgbm_disparity frame by frame);
     tiled_cost_volume_batch (frame 1 x tile 1) and tiled2d_cost_volume_stereo
     (1, 1, 1) with lr_check on the first frame, guided and denoised, held to
-    models.costvolume.cost_volume_stereo as the CPU tests hold tiled to whole
-    (at most 1% of pixels beyond 0.02 px); wta_disparity_dslab on one slab
+    models.costvolume.cost_volume_stereo on the eager guided filter the
+    tiles run, as the CPU tests hold tiled to whole (at most 1% of pixels
+    beyond 0.02 px), and beside it on K4; wta_disparity_dslab on one slab
     of the first frame's guided volume, bit-equal to wta_disparity;
     sgbm_pipeline_mesh on the band scene (SGBMConfig(); one band: rank 0
     skips its up-sweep launch, so one K1c launch), held to sgbm_disparity
@@ -1462,8 +1571,10 @@ def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
     from stereomatch_tpu_torch import random as trandom
     from stereomatch_tpu_torch.apps.stereo_yin import builtin_cost_volumes
     from stereomatch_tpu_torch.config import CostVolumeConfig, CostVolumePipelineConfig, SGBMConfig
+    from stereomatch_tpu_torch.models import costvolume
     from stereomatch_tpu_torch.models.costvolume import cost_volume_stereo
     from stereomatch_tpu_torch.models.mst import _fused_capacities, _seed_min_cost
+    from stereomatch_tpu_torch.ops.filters import guided_filter_volume, guided_filter_volume_twin
     from stereomatch_tpu_torch.models.sgbm_mst import (
         _default_sgbm_cfg, _gray_from_bgr, _seed_pair, _view_forest,
     )
@@ -1517,7 +1628,7 @@ def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
     # ---- the cost-volume pipelines, row tiles and (tile_y, tile_x, dslab) ----
     cv_cfg = CostVolumePipelineConfig(volume=CostVolumeConfig(min_disp=0, max_disp=MAX_DISP - 1))
     bl, br = bgr[0]
-    shares = {}
+    shares, k4_shares = {}, {}
     for path, lr in (("mesh_tiled_batch", False), ("mesh_tiled2d_lr", True)):
         if lr:
             fn = parallel.tiled2d_cost_volume_stereo(mesh3, (h, w), cv_cfg, lr_check=True)
@@ -1526,13 +1637,22 @@ def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
             fn = parallel.tiled_cost_volume_batch(mesh, cv_cfg)
             got = [x[0] for x in run(path, lambda: fn(bl[None], br[None]), {}, "no kernel")]
         whole = timed(path + "_single", lambda: cost_volume_stereo(bl, br, cv_cfg, lr_check=lr))
-        for view, g, wv in zip(("left", "right"), got, whole[:2]):
+        # the tiles filter with the eager box filters (parallel/tiled.py),
+        # the whole frame with K4, which rounds its window sums otherwise:
+        # the tiles are held to the whole frame on the filter they run
+        costvolume.guided_filter_volume = guided_filter_volume_twin
+        try:
+            eager = cost_volume_stereo(bl, br, cv_cfg, lr_check=lr)
+        finally:
+            costvolume.guided_filter_volume = guided_filter_volume
+        for view, g, wv, k4v in zip(("left", "right"), got, eager[:2], whole[:2]):
             if g.shape != (h, w) or not torch.isfinite(g).all():
                 raise AssertionError(f"{path}: bad output shape or non-finite values")
             shares[f"{path} {view}"] = share = ((g - wv).abs() > 0.02).double().mean().item()
+            k4_shares[f"{path} {view}"] = ((g - k4v).abs() > 0.02).double().mean().item()
             if share > 0.01:
                 raise AssertionError(f"{path} {view}: {share:.4f} of pixels beyond 0.02 px")
-        del got, whole
+        del got, whole, eager
 
     # ---- the WTA over disparity slabs, one slab ----
     vl, _ = builtin_cost_volumes(bl.flip(-1), br.flip(-1), MAX_DISP, guided=True)
@@ -1594,7 +1714,8 @@ def parallel_paths(scenes, band_scene, cfg, dev) -> dict:
     del vl, fa, planes, seed_l, bgr, bl, br
     log(f"parallel: one NCCL rank ({dist.get_backend()}, world {dist.get_world_size()}); "
         f"sgbm_batch_mesh 2x{h}x{w}x{sgbm_cfg.num_disp} bit-equal to sgbm_disparity; tiled vs "
-        f"whole shares beyond 0.02 px {json.dumps({k: round(v, 6) for k, v in shares.items()})}; "
+        f"whole shares beyond 0.02 px {json.dumps({k: round(v, 6) for k, v in shares.items()})} "
+        f"(on K4's whole frame {json.dumps({k: round(v, 6) for k, v in k4_shares.items()})}); "
         f"wta_disparity_dslab bit-equal; sgbm_pipeline_mesh {bh}x{bw}x{bcfg.num_disp} vs the "
         f"whole frame: beyond 1e-5 px or validity {jitter:.6f}, beyond 0.1 px {ties:.6f}, the "
         f"integer gray's {exact:.6f}; the 3DMST meshes equal mst_pms_optimize: {mst_equal}")
@@ -1741,6 +1862,13 @@ def main() -> int:
                                        k2_entry("segmented_cumsum", "nodes")["max_abs_err"])
     kernels["K2a"] = k2_entry("ancestor_sums", "ancestor")
     kernels["K3"] = k3_cases(_fused_capacities(*K3_FRAME, cfg)[0], dev)
+    # K4 on the band scene's left view, here and not after the paths: late in
+    # a long process torch.profiler's short traces can hold no device event
+    t0 = time.perf_counter()
+    band_scene = render_scene(SCENE_SEED, *BAND_SHAPE)
+    log(f"render: {time.perf_counter() - t0:.1f} s (one frame {BAND_SHAPE[0]}x{BAND_SHAPE[1]}, "
+        f"max_disp {BAND_SHAPE[2]})")
+    kernels["K4"] = k4_cases(band_scene, dev)
 
     # ---- the slice: the server's main path, counted ----
     servers = {
@@ -1766,7 +1894,7 @@ def main() -> int:
     for (mode, i), (dl, dr) in outputs.items():
         msg = gate(dl, dr, scenes[i], GATES, f"{mode} frame {i}")
         log(f"{mode} frame {i}: {frame_s[mode][i]:.3f} s, {msg}")
-    expect_launches("fused server", launches, 2 * FRAMES, 0)
+    expect_launches("fused server", launches, 2 * FRAMES, 0, guided=FRAMES)
     log(f"launches on the fused server path: {launches}; peak device memory {peak_gb:.2f} GB")
     for mode, ts in frame_s.items():
         log(f"{mode}: seconds per frame {['%.3f' % t for t in ts]}, "
@@ -1811,10 +1939,6 @@ def main() -> int:
     # the PatchMatch engines after them, for the same reason
     by_path.update(patchmatch_paths(sc0, dev))
     # then the band-streamed SGBM, c2f with the priors and the coupled WTA
-    t0 = time.perf_counter()
-    band_scene = render_scene(SCENE_SEED, *BAND_SHAPE)
-    log(f"render: {time.perf_counter() - t0:.1f} s (one frame {BAND_SHAPE[0]}x{BAND_SHAPE[1]}, "
-        f"max_disp {BAND_SHAPE[2]})")
     band_launches, band_rows = banded_sgbm_path(band_scene, dev)
     by_path.update(band_launches)
     by_path.update(c2f_prior_paths(sc0, dev))
@@ -1845,7 +1969,7 @@ def main() -> int:
         "bound_ms": k1c["bound_ms"], "bound_by": k1c["bound_by"], "library_ms": None,
         "shape": k1c["shape"], "up_sweep_ms": k1c["up_sweep_ms"],
     }
-    for k in ("K1", "K1c", "K2", "K2a", "K3"):
+    for k in ("K1", "K1c", "K2", "K2a", "K3", "K4"):
         counts = {path: c[k] for path, c in by_path.items()}
         if sum(counts.values()) <= 0:
             raise AssertionError(f"{k} was launched on no path: {counts}")
@@ -1853,7 +1977,7 @@ def main() -> int:
         kernels[k]["launches_by_path"] = counts
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     log(card)
-    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K1c", "K2", "K2a", "K3")]}))
+    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K1c", "K2", "K2a", "K3", "K4")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

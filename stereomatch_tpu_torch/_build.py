@@ -4,11 +4,12 @@ The kernels build at first use, from the sources in this checkout, into
 `build/torch_ext/` at the repository root, and only when a CUDA tensor
 reaches a kernel wrapper: importing the package needs neither a GPU nor
 nvcc. With `ninja` on PATH the build is one
-`torch.utils.cpp_extension.load` call (the three .cu files, K1's
-`sgbm_aggregate.cu`, K2's `seg_scan.cu` and K3's `threefry.cu`, plus the
-one binding file that includes torch/extension.h); without it, the same
-four sources are compiled by one `nvcc -shared` command into the same
-Python extension module. Both target `sm_90a`.
+`torch.utils.cpp_extension.load` call (the four .cu files, K1's
+`sgbm_aggregate.cu`, K2's `seg_scan.cu`, K3's `threefry.cu` and K4's
+`guided_filter.cu`, plus the one binding file that includes
+torch/extension.h); without it, the same five sources are compiled by one
+`nvcc -shared` command into the same Python extension module. Both target
+`sm_90a`.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ __all__ = ["load_kernels", "BUILD_DIR"]
 _NAME = "stereomatch_tpu_torch_kernels"
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_ext"
-_SOURCES = ("bindings.cpp", "sgbm_aggregate.cu", "seg_scan.cu", "threefry.cu")
+_SOURCES = ("bindings.cpp", "sgbm_aggregate.cu", "seg_scan.cu", "threefry.cu",
+            "guided_filter.cu")
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 
@@ -77,7 +79,7 @@ def _load_with_nvcc(verbose: bool, build_dir: Path = BUILD_DIR):
 def load_kernels(verbose: bool = False):
     """The compiled kernel module (K1 `sgbm_aggregate`; K2 `seg_scan`,
     `ancestor_sums` and `seg_scan_plan`; K3 `threefry_keys` and
-    `threefry_uniform`), built on the first call in this process. Raises if
-    the build fails."""
+    `threefry_uniform`; K4 `guided_filter`), built on the first call in this
+    process. Raises if the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return _load_with_ninja(verbose) if shutil.which("ninja") else _load_with_nvcc(verbose)

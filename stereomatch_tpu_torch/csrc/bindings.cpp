@@ -1,6 +1,7 @@
 // PyTorch bindings of the Hopper kernels. The only source that includes
 // torch/extension.h; the kernels themselves see raw pointers. The Python
-// wrappers (ops/sgbm_cuda.py, ops/mst_scan_cuda.py, random.py) check device, dtype,
+// wrappers (ops/sgbm_cuda.py, ops/mst_scan_cuda.py, random.py,
+// ops/filters.py) check device, dtype,
 // shape and contiguity before calling in; the checks here guard the
 // pointer arithmetic the kernels rely on.
 
@@ -146,6 +147,26 @@ void threefry_uniform(const at::Tensor& key, at::Tensor out, double lo, double h
                           out.data_ptr<float>(), at::cuda::getCurrentCUDAStream());
 }
 
+// K4: out = the guided filter of vol with guide as the guide
+void guided_filter(const at::Tensor& guide, const at::Tensor& vol, at::Tensor out, int64_t radius,
+                   double eps) {
+  for (const at::Tensor* t : std::initializer_list<const at::Tensor*>{&guide, &vol, &out}) {
+    check_cuda_contig(*t, "guided_filter operand");
+    TORCH_CHECK(t->scalar_type() == at::kFloat, "guided_filter operands must be float32");
+    TORCH_CHECK(t->device() == vol.device(), "guided_filter operands must share a device");
+  }
+  TORCH_CHECK(vol.dim() == 3 && out.sizes() == vol.sizes(), "vol and out must be (H, W, D)");
+  TORCH_CHECK(guide.dim() == 2 && guide.size(0) == vol.size(0) && guide.size(1) == vol.size(1),
+              "guide must be (H, W)");
+  TORCH_CHECK(vol.size(0) < (int64_t(1) << 31) && vol.size(1) < (int64_t(1) << 31) &&
+                  vol.size(2) < (int64_t(1) << 31), "guided_filter: a dimension too large");
+  TORCH_CHECK(radius >= 0 && radius <= 9, "guided_filter takes 0 <= radius <= 9, got ", radius);
+  const c10::cuda::CUDAGuard guard(vol.device());
+  guided_filter_launch(guide.data_ptr<float>(), vol.data_ptr<float>(), out.data_ptr<float>(),
+                       (int)vol.size(0), (int)vol.size(1), (int)vol.size(2), (int)radius,
+                       (float)eps, at::cuda::getCurrentCUDAStream());
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -156,4 +177,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ancestor_sums", &ancestor_sums, "K2 with the Euler ancestor-sum gathers fused");
   m.def("threefry_keys", &threefry_keys, "K3: (..., 2) keys threefry(key, (0, base + i))");
   m.def("threefry_uniform", &threefry_uniform, "K3: float32 uniform draws in [lo, hi)");
+  m.def("guided_filter", &guided_filter, "K4: the zero-padded gray guided filter of a volume");
 }

@@ -59,3 +59,10 @@ void threefry_keys_launch(const int64_t* key, int64_t key_stride, uint32_t base,
                           int64_t* out, cudaStream_t stream);
 void threefry_uniform_launch(const int64_t* key, int64_t key_stride, int64_t n, float lo,
                              float hi, float* out, cudaStream_t stream);
+
+// K4 (guided_filter.cu): the zero-padded gray guided filter of an (h, w, d)
+// float32 volume with an (h, w) float32 guide, window 2 radius + 1, eps;
+// out (h, w, d) float32. All three contiguous, out not overlapping the
+// inputs; 0 <= radius <= 9; any h, w, d. One launch, none when empty.
+void guided_filter_launch(const float* guide, const float* vol, float* out, int h, int w, int d,
+                          int radius, float eps, cudaStream_t stream);

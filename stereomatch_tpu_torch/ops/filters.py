@@ -5,6 +5,8 @@ Same border semantics as the JAX module: `mode="zero"` pads with zeros and
 normalizes by a fixed 1/(2r+1); `mode="reflect"` is BORDER_REFLECT_101
 (`jnp.pad(mode="reflect")`). Window sums are cumsum differences, like the
 JAX version, so results agree to float32 rounding of the cumsum order.
+On a CUDA device `guided_filter_volume` is kernel K4
+(csrc/guided_filter.cu), whose plain twin is `guided_filter_volume_twin`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ __all__ = [
     "box_filter",
     "guided_filter_gray",
     "guided_filter_volume",
+    "guided_filter_volume_twin",
     "guided_filter_color",
     "median3x3",
 ]
@@ -105,9 +108,58 @@ def guided_filter_volume(
     slab: int = 16,
     mode: str = "zero",
 ) -> torch.Tensor:
-    """Guided-filter an (H, W, D) volume `slab` disparity slices at a time
-    (guide statistics computed once), bounding peak memory to ~2 slabs of
-    temporaries on top of the input and output volumes."""
+    """Guided-filter an (H, W, D) float32 volume, every disparity slice with
+    the (H, W) guide, zero padding.
+
+    A CPU tensor runs the plain twin, `guided_filter_volume_twin`, `slab`
+    slices at a time. A CUDA tensor launches kernel K4 once
+    (csrc/guided_filter.cu: the whole volume, no temporaries but the
+    output, so `slab` is not read) or raises: K4 takes float32 contiguous
+    operands on one device, 0 <= radius <= 9 and mode "zero" only.
+    `guided_filter_volume.launches` counts K4 launches. K4 sums its windows
+    directly and by short slides where the twin takes cumsum differences,
+    so the two agree to float32 rounding of the window sums."""
+    if volume.device.type == "cpu":
+        return guided_filter_volume_twin(guide, volume, radius, eps, slab, mode)
+    if not volume.is_cuda:
+        raise ValueError(f"K4 takes CUDA (or CPU) tensors, got one on {volume.device}")
+    if mode != "zero":
+        raise ValueError(f"K4 filters with zero padding only, got mode {mode!r}")
+    if volume.ndim != 3 or guide.shape != volume.shape[:2]:
+        raise ValueError(f"volume must be (H, W, D) and guide (H, W), got "
+                         f"{tuple(volume.shape)} and {tuple(guide.shape)}")
+    if volume.dtype != torch.float32 or guide.dtype != torch.float32:
+        raise TypeError(f"K4 takes float32, got {volume.dtype} and {guide.dtype}")
+    if guide.device != volume.device:
+        raise ValueError(f"guide on {guide.device}, volume on {volume.device}")
+    if not (volume.is_contiguous() and guide.is_contiguous()):
+        raise ValueError("volume and guide must be contiguous")
+    if not 0 <= int(radius) <= 9:
+        raise ValueError(f"K4 takes 0 <= radius <= 9, got {radius}")
+    out = torch.empty_like(volume)
+    if out.numel() == 0:
+        return out
+    from .._build import load_kernels
+
+    load_kernels().guided_filter(guide, volume, out, int(radius), float(eps))
+    guided_filter_volume.launches += 1
+    return out
+
+
+guided_filter_volume.launches = 0
+
+
+def guided_filter_volume_twin(
+    guide: torch.Tensor,
+    volume: torch.Tensor,
+    radius: int,
+    eps: float,
+    slab: int = 16,
+    mode: str = "zero",
+) -> torch.Tensor:
+    """K4's plain twin: guided-filter an (H, W, D) volume `slab` disparity
+    slices at a time (guide statistics computed once), bounding peak memory
+    to ~2 slabs of temporaries on top of the input and output volumes."""
     h, w, d = volume.shape
     g = guide
     mean_g = box_filter(g, radius, (0, 1), mode)
