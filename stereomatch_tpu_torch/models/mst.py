@@ -98,6 +98,21 @@ def _seed_min_cost(vol, a0, b0, c0, fa, cfg: MSTConfig) -> torch.Tensor:
     return mc0
 
 
+def _refine_seeded_view(k, vol, fa: ForestArrays, seed_disp, cfg: MSTConfig, iterations: int,
+                        refine_start, max_neighbors: int) -> torch.Tensor:
+    """The seeded refine of one view on its forest: plane labels fit to the
+    seed map (pixels) at their true aggregated cost, `iterations` MST_PMS
+    refinements with the ladder entered at `refine_start`, and the
+    disparity map in pixels."""
+    a0, b0, c0 = plane_labels_from_disparity(seed_disp, fa)
+    mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
+    a, b, c, _ = mst_pms_optimize(
+        k, vol, fa, cfg, max_neighbors=max_neighbors, iterations=iterations,
+        init_state=(a0, b0, c0, mc0), refine_start=refine_start,
+    )
+    return labels_to_disparity(a, b, c, fa, cfg.max_disp) * (cfg.max_disp - 1.0)
+
+
 def build_view_forest(bgr, cfg: MSTConfig, device: torch.device | str = "cuda") -> ForestArrays:
     """The forest of one view on `device`. cfg.forest_backend="host": the
     median prefilter on `device`, one copy of the image to the host, then
@@ -285,13 +300,8 @@ def mst_stereo_seeded(
         if cfg.volume_dtype != "float32":
             vol = vol.to(getattr(torch, cfg.volume_dtype))
         fa = build_view_forest(bgr, cfg, device)
-        a0, b0, c0 = plane_labels_from_disparity(torch.as_tensor(seed_disp).to(device), fa)
-        mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
-        a, b, c, _ = mst_pms_optimize(
-            k, vol, fa, cfg, max_neighbors=max_neighbors, iterations=fi,
-            init_state=(a0, b0, c0, mc0), refine_start=refine_start,
-        )
-        return labels_to_disparity(a, b, c, fa, cfg.max_disp) * (cfg.max_disp - 1.0)
+        return _refine_seeded_view(k, vol, fa, torch.as_tensor(seed_disp).to(device), cfg, fi,
+                                   refine_start, max_neighbors)
 
     disp_l = view(kl, left_bgr, left_vol, seed_disp_l)
     disp_r = view(kr, right_bgr, right_vol, seed_disp_r)

@@ -12,20 +12,22 @@ running SGBM.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import torch
 
 from ..config import MSTConfig, SGBMConfig
 from .. import random as trandom
 from ..ops.device_forest import build_forest_device, check_forest_capacity, device_forest_arrays
 from ..ops.filters import median3x3
-from ..ops.mst import labels_to_disparity, mst_pms_optimize, plane_labels_from_disparity
 from ..ops.postprocess import nearest_valid_fill
 from ..ops.segmentation import channel_l1
 from ..ops.sgbm import sgbm_disparity
 from ..utils.timing import span
-from .mst import MSTOutput, _fused_capacities, _lr_checked, _seed_min_cost, mst_stereo_seeded
+from .mst import MSTOutput, _fused_capacities, _lr_checked, _refine_seeded_view, mst_stereo_seeded
 
 __all__ = [
+    "SeededMSTFrame",
     "sgbm_seed_disparities",
     "sgbm_mst_stereo",
     "sgbm_mst_stereo_fused",
@@ -90,57 +92,68 @@ def _refine_view_given_forest(raw, vol, seed_disp, k, cfg: MSTConfig, h: int, w:
                               tmax: int, fine_iterations: int, refine_start,
                               max_neighbors: int) -> torch.Tensor:
     """Plane-fit seed labels + truncated-ladder refinement on a built forest
-    (raw, from _view_forest: possibly a previous keyframe's); returns the
-    (H, W) disparity in pixels. Enqueues without a host sync."""
-    top = float(cfg.max_disp - 1)
+    (raw, from _view_forest: possibly a previous keyframe's), the seed
+    clamped to [0, max_disp-1]; returns the (H, W) disparity in pixels.
+    Enqueues without a host sync."""
     with span("sm.refine"):
         vol = vol.to(getattr(torch, cfg.volume_dtype))
         fa = device_forest_arrays(raw, h, w, tmax=tmax, check=False)
-        a0, b0, c0 = plane_labels_from_disparity(torch.clamp(seed_disp, 0.0, top), fa)
-        mc0 = _seed_min_cost(vol, a0, b0, c0, fa, cfg)
-        a, b, c, _ = mst_pms_optimize(
-            k, vol, fa, cfg, max_neighbors=max_neighbors, iterations=fine_iterations,
-            init_state=(a0, b0, c0, mc0), refine_start=refine_start,
-        )
-        return labels_to_disparity(a, b, c, fa, cfg.max_disp) * top
+        seed = torch.clamp(seed_disp, 0.0, float(cfg.max_disp - 1))
+        return _refine_seeded_view(k, vol, fa, seed, cfg, fine_iterations, refine_start,
+                                   max_neighbors)
 
 
-def _fused_refine_view(bgr, vol, seed_disp, k, cfg: MSTConfig, h: int, w: int, tmax: int,
-                       adj_cap: int, fine_iterations: int, refine_start,
-                       max_neighbors: int) -> torch.Tensor:
-    raw = _view_forest(bgr, cfg, tmax, adj_cap)
-    return _refine_view_given_forest(
-        raw, vol, seed_disp, k, cfg, h, w, tmax, fine_iterations, refine_start, max_neighbors,
-    )
+@dataclass(frozen=True)
+class SeededMSTFrame:
+    """The SGBM-seeded 3DMST frame of HxW pairs, before the LR check: the
+    one assembly of its stages that the pair server, the video server's
+    keyframe and temporal frame and the fused offline entries share.
+    `seeds` is the SGBM seed pair; `refine` refines both views from given
+    seeds. sgbm_cfg defaults to _default_sgbm_cfg(cfg)."""
 
+    cfg: MSTConfig
+    h: int
+    w: int
+    sgbm_cfg: SGBMConfig | None = None
+    max_neighbors: int = 2
+    right_seed: str = "disp2"
+    tmax: int = field(init=False)
+    adj_cap: int = field(init=False)
 
-def _sgbm_mst_frame_fused(left_bgr, right_bgr, left_vol, right_vol, key, cfg: MSTConfig,
-                          sgbm_cfg: SGBMConfig, fine_iterations: int, refine_start,
-                          max_neighbors: int, h: int, w: int, tmax: int, adj_cap: int,
-                          right_seed: str = "disp2"):
-    """The whole frame on the inputs' device: (left, right) disparity maps
-    before the LR check."""
-    seed_l, seed_r = _seed_pair(_gray_from_bgr(left_bgr), _gray_from_bgr(right_bgr),
-                                sgbm_cfg, right_seed)
-    kl, kr = trandom.split(key)
-    disp_l = _fused_refine_view(left_bgr, left_vol, seed_l, kl, cfg, h, w, tmax, adj_cap,
-                                fine_iterations, refine_start, max_neighbors)
-    disp_r = _fused_refine_view(right_bgr, right_vol, seed_r, kr, cfg, h, w, tmax, adj_cap,
-                                fine_iterations, refine_start, max_neighbors)
-    return disp_l, disp_r
+    def __post_init__(self):
+        if self.sgbm_cfg is None:
+            object.__setattr__(self, "sgbm_cfg", _default_sgbm_cfg(self.cfg))
+        tmax, adj_cap = _fused_capacities(self.h, self.w, self.cfg)
+        object.__setattr__(self, "tmax", tmax)
+        object.__setattr__(self, "adj_cap", adj_cap)
 
+    def seeds(self, left_bgr: torch.Tensor, right_bgr: torch.Tensor):
+        """(left, right) filled SGBM disparity maps of a float BGR pair."""
+        return _seed_pair(_gray_from_bgr(left_bgr), _gray_from_bgr(right_bgr), self.sgbm_cfg,
+                          self.right_seed)
 
-def _mst_refine_frame_fused(left_bgr, right_bgr, left_vol, right_vol, seed_l, seed_r, key,
-                            cfg: MSTConfig, fine_iterations: int, refine_start,
-                            max_neighbors: int, h: int, w: int, tmax: int, adj_cap: int):
-    """The temporal (video) frame: _sgbm_mst_frame_fused with the seed maps
-    as inputs (the previous frame's refined maps) instead of an SGBM pass."""
-    kl, kr = trandom.split(key)
-    disp_l = _fused_refine_view(left_bgr, left_vol, seed_l, kl, cfg, h, w, tmax, adj_cap,
-                                fine_iterations, refine_start, max_neighbors)
-    disp_r = _fused_refine_view(right_bgr, right_vol, seed_r, kr, cfg, h, w, tmax, adj_cap,
-                                fine_iterations, refine_start, max_neighbors)
-    return disp_l, disp_r
+    def refine(self, bgrs, vols, seeds, key, iterations: int, refine_start,
+               forests=None, keep_forests: bool = False) -> tuple:
+        """Both views, each a (BGR image, cost volume, seed map) of the
+        pairs `bgrs`, `vols` and `seeds`, refined with the halves of `key`:
+        (disp_l, disp_r), followed by the two forests if `keep_forests`.
+        A view builds its forest unless `forests` hands it one."""
+        keys = trandom.split(key)
+        if forests is None and keep_forests:
+            # forests that are kept outlive the frame anyway: build both, with
+            # their host syncs, before either refine is enqueued. Forests that
+            # are dropped are built one at a time, so one is alive at once
+            forests = [_view_forest(bgr, self.cfg, self.tmax, self.adj_cap) for bgr in bgrs]
+        disps = []
+        for i, k in enumerate(keys):
+            # a forest built here is only an argument, freed before the next view
+            # builds its own; the refine is looked up in this module at call time,
+            # so that a swap of it also reaches servers built before the swap
+            disps.append(_refine_view_given_forest(
+                _view_forest(bgrs[i], self.cfg, self.tmax, self.adj_cap) if forests is None
+                else forests[i], vols[i], seeds[i], k, self.cfg, self.h, self.w, self.tmax,
+                iterations, refine_start, self.max_neighbors))
+        return (*disps, *forests) if keep_forests else tuple(disps)
 
 
 def _on(x, device, dtype=None) -> torch.Tensor:
@@ -198,18 +211,13 @@ def sgbm_mst_stereo_fused(
     """SGBM-seeded 3DMST on a rectified BGR pair + (H, W, D) cost volumes,
     run on `device`: the frame, the smoothness prior and the LR check of
     the left map. Same RNG stream as the JAX function for the same seed."""
-    left_bgr = _on(left_bgr, device, torch.float32)
-    right_bgr = _on(right_bgr, device, torch.float32)
-    h, w = left_bgr.shape[:2]
-    if sgbm_cfg is None:
-        sgbm_cfg = _default_sgbm_cfg(cfg)
-    tmax, adj_cap = _fused_capacities(h, w, cfg)
-    disp_l, disp_r = _sgbm_mst_frame_fused(
-        left_bgr, right_bgr, _on(left_vol, device), _on(right_vol, device),
-        trandom.PRNGKey(seed, device), cfg, sgbm_cfg,
-        fine_iterations, refine_start, max_neighbors, h, w, tmax, adj_cap, right_seed,
-    )
-    return _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg)
+    bgrs = (_on(left_bgr, device, torch.float32), _on(right_bgr, device, torch.float32))
+    frame = SeededMSTFrame(cfg, *bgrs[0].shape[:2], sgbm_cfg, max_neighbors, right_seed)
+    vols = (_on(left_vol, device), _on(right_vol, device))
+    key = trandom.PRNGKey(seed, device)
+    disp_l, disp_r = frame.refine(bgrs, vols, frame.seeds(*bgrs), key, fine_iterations,
+                                  refine_start)
+    return _lr_checked(disp_l, disp_r, *bgrs, cfg)
 
 
 def mst_stereo_temporal_fused(
@@ -229,19 +237,14 @@ def mst_stereo_temporal_fused(
     """One video frame: the previous frame's maps (both views, clipped to
     [0, max_disp-1]) seed this frame's plane labels, then the smoothness
     prior and the LR check. Same RNG stream as the JAX function."""
-    left_bgr = _on(left_bgr, device, torch.float32)
-    right_bgr = _on(right_bgr, device, torch.float32)
-    h, w = left_bgr.shape[:2]
-    tmax, adj_cap = _fused_capacities(h, w, cfg)
-    top = float(cfg.max_disp - 1)
-    disp_l, disp_r = _mst_refine_frame_fused(
-        left_bgr, right_bgr, _on(left_vol, device), _on(right_vol, device),
-        torch.clamp(_on(prev_left_disp, device), 0.0, top),
-        torch.clamp(_on(prev_right_disp, device), 0.0, top),
-        trandom.PRNGKey(seed, device), cfg, fine_iterations, refine_start, max_neighbors,
-        h, w, tmax, adj_cap,
+    bgrs = (_on(left_bgr, device, torch.float32), _on(right_bgr, device, torch.float32))
+    frame = SeededMSTFrame(cfg, *bgrs[0].shape[:2], max_neighbors=max_neighbors)
+    disp_l, disp_r = frame.refine(
+        bgrs, (_on(left_vol, device), _on(right_vol, device)),
+        (_on(prev_left_disp, device), _on(prev_right_disp, device)),
+        trandom.PRNGKey(seed, device), fine_iterations, refine_start,
     )
-    return _lr_checked(disp_l, disp_r, left_bgr, right_bgr, cfg)
+    return _lr_checked(disp_l, disp_r, *bgrs, cfg)
 
 
 def sgbm_mst_video(

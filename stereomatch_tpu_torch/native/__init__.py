@@ -7,8 +7,7 @@ segment splits at weighted depth `delta`, and the merged DFS that numbers
 nodes and Euler events segment-contiguously. It runs on the host once per
 view and returns numpy arrays; `ops.mst.forest_arrays` moves them to the
 device. Called through ctypes; the library is built with g++ at first use
-(native/build.py). Without a compiler the pure-Python builder of
-pyforest.py stands in, with a RuntimeWarning.
+(native/build.py), and a build or load that fails raises.
 """
 
 from __future__ import annotations
@@ -90,8 +89,8 @@ def build_forest(
 ) -> Forest:
     """Segment and build the MST forest from 4-neighbour edge weights:
     edge_w_right (H, W-1) between (y, x)-(y, x+1), edge_w_down (H-1, W)
-    between (y, x)-(y+1, x). Falls back to pyforest.build_forest_fallback,
-    with a RuntimeWarning, when the library cannot be built or loaded."""
+    between (y, x)-(y+1, x). Raises RuntimeError when the library cannot
+    be built or loaded."""
     h, wm1 = edge_w_right.shape
     hm1, w = edge_w_down.shape
     if wm1 != w - 1 or hm1 != h - 1:
@@ -100,17 +99,9 @@ def build_forest(
     try:
         lib = _load()
     except (OSError, subprocess.CalledProcessError) as exc:  # no g++, or no loadable .so
-        import warnings
-
-        from .pyforest import build_forest_fallback
-
-        warnings.warn(
-            f"native forest builder unavailable ({exc!r}); using the pure-Python "
-            "Boruvka fallback (slower, statistically equivalent partition)",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-        return build_forest_fallback(edge_w_right, edge_w_down, c, min_size, gamma, delta)
+        raise RuntimeError(
+            f"native forest builder unavailable ({exc!r}): native/build.py builds "
+            "treebuild.cpp with g++") from exc
     n = h * w
     wr = np.ascontiguousarray(edge_w_right, np.float32)
     wd = np.ascontiguousarray(edge_w_down, np.float32)

@@ -1,14 +1,11 @@
-"""Pure-Python forest builder: the stand-in when treebuild.cpp cannot be
-built (port of `stereomatch_tpu/native/pyforest.py`).
+"""Pure-Python forest construction on a given partition (port of
+`forest_from_labels` in `stereomatch_tpu/native/pyforest.py`).
 
-The partition comes from the port's Boruvka segmentation
-(ops/segmentation.py, the parallel member of the Felzenszwalb family);
-per-component minimum spanning trees come from Kruskal over ascending
+Per-component minimum spanning trees come from Kruskal over ascending
 within-component edges, then the same weighted-depth segment splits, DFS
 numbering and inter-tree adjacency as treebuild.cpp, in the same Forest
-contract. The partition differs from the sequential Felzenszwalb rule
-(Boruvka batches the threshold updates); the forest construction on a
-given partition is identical. Python-loop speed: a fallback only.
+contract. Python-loop speed: tests/test_torch_native.py holds it to the
+JAX package's on the same labels.
 """
 
 from __future__ import annotations
@@ -183,19 +180,3 @@ def forest_from_labels(labels: np.ndarray, wr: np.ndarray, wd: np.ndarray,
         adj_list=adj_list[: int(adj_start[-1])],
         num_trees=num_trees, num_segments=num_segments,
     )
-
-
-def build_forest_fallback(edge_w_right, edge_w_down, c, min_size, gamma,
-                          delta=40.0):
-    """Drop-in for native.build_forest: Boruvka partition (torch, on the
-    CPU) + Python forest construction."""
-    import torch
-
-    from ..ops.segmentation import boruvka_segment
-
-    labels = boruvka_segment(
-        torch.as_tensor(np.asarray(edge_w_right, np.float32)),
-        torch.as_tensor(np.asarray(edge_w_down, np.float32)),
-        float(c), int(min_size),
-    ).numpy()
-    return forest_from_labels(labels, edge_w_right, edge_w_down, gamma, delta)

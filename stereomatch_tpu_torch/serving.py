@@ -27,7 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .config import MSTConfig, SGBMConfig
+from .config import MSTConfig, SGBMConfig, production_mst_config
 from . import random as trandom
 from .utils.timing import span
 
@@ -195,13 +195,15 @@ class StereoStreamServer:
         return [self.collect(t) for t in sorted(set(tickets))]
 
 
-def _defaults(cfg: MSTConfig | None, sgbm_cfg: SGBMConfig | None):
-    from .config import production_mst_config
-    from .models.sgbm_mst import _default_sgbm_cfg
+def _frame(h: int, w: int, cfg: MSTConfig | None, sgbm_cfg: SGBMConfig | None,
+           max_neighbors: int, right_seed: str):
+    """The servers' SGBM-seeded 3DMST frame; cfg defaults to
+    `production_mst_config(128, forest_backend="device")`."""
+    from .models.sgbm_mst import SeededMSTFrame
 
     if cfg is None:
         cfg = production_mst_config(128, forest_backend="device")
-    return cfg, (_default_sgbm_cfg(cfg) if sgbm_cfg is None else sgbm_cfg)
+    return SeededMSTFrame(cfg, h, w, sgbm_cfg, max_neighbors, right_seed)
 
 
 def _volume_stage(h: int, w: int, d: int, guided: bool):
@@ -244,20 +246,14 @@ def compile_sgbm_mst_server(
     `scan_backend` is not read here (the scan is K2 on CUDA, its twin on
     CPU). `submit_pair(left, right, seed=None)` keys each frame's RNG by its
     ticket unless a seed is given, as the JAX server does."""
-    from .models.mst import _fused_capacities
-    from .models.sgbm_mst import _sgbm_mst_frame_fused
-
     _reject_unported(staged, cache_dir)
-    cfg, sgbm_cfg = _defaults(cfg, sgbm_cfg)
-    tmax, adj_cap = _fused_capacities(h, w, cfg)
-    volumes = _volume_stage(h, w, cfg.max_disp, volume_guided)
+    sm = _frame(h, w, cfg, sgbm_cfg, max_neighbors, right_seed)
+    volumes = _volume_stage(h, w, sm.cfg.max_disp, volume_guided)
 
     def frame(left_bgr, right_bgr, key):
         left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
-        return _sgbm_mst_frame_fused(
-            left_bgr, right_bgr, vl, vr, key, cfg, sgbm_cfg, fine_iterations,
-            refine_start, max_neighbors, h, w, tmax, adj_cap, right_seed,
-        )
+        return sm.refine((left_bgr, right_bgr), (vl, vr), sm.seeds(left_bgr, right_bgr), key,
+                         fine_iterations, refine_start)
 
     server = StereoStreamServer(frame, device, capacity=capacity, retries=retries,
                                 retry_backoff_s=retry_backoff_s)
@@ -448,64 +444,25 @@ def compile_mst_video_server(
     both frames build their forests; with it the temporal frame refines on
     the last keyframe's forests and builds none. Same defaults, RNG stream
     and frame semantics as the JAX function; see VideoStreamServer."""
-    from .models.mst import _fused_capacities
-    from .models.sgbm_mst import (
-        _gray_from_bgr,
-        _mst_refine_frame_fused,
-        _refine_view_given_forest,
-        _seed_pair,
-        _sgbm_mst_frame_fused,
-        _view_forest,
-    )
-
     _reject_unported(staged, cache_dir)
-    cfg, sgbm_cfg = _defaults(cfg, sgbm_cfg)
+    sm = _frame(h, w, cfg, sgbm_cfg, max_neighbors, right_seed)
     ti = fine_iterations if temporal_iterations is None else temporal_iterations
     trs = refine_start if temporal_refine_start is None else temporal_refine_start
-    tmax, adj_cap = _fused_capacities(h, w, cfg)
-    top = float(cfg.max_disp - 1)
-    volumes = _volume_stage(h, w, cfg.max_disp, volume_guided)
+    volumes = _volume_stage(h, w, sm.cfg.max_disp, volume_guided)
 
-    if reuse_forest:
-        def keyframe(left_bgr, right_bgr, k):
-            left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
-            sl, sr = _seed_pair(_gray_from_bgr(left_bgr), _gray_from_bgr(right_bgr),
-                                sgbm_cfg, right_seed)
-            kl, kr = trandom.split(k)
-            fl = _view_forest(left_bgr, cfg, tmax, adj_cap)
-            fr = _view_forest(right_bgr, cfg, tmax, adj_cap)
-            dl = _refine_view_given_forest(fl, vl, sl, kl, cfg, h, w, tmax, fine_iterations,
-                                           refine_start, max_neighbors)
-            dr = _refine_view_given_forest(fr, vr, sr, kr, cfg, h, w, tmax, fine_iterations,
-                                           refine_start, max_neighbors)
-            return dl, dr, fl, fr
+    def keyframe(left_bgr, right_bgr, key):
+        left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
+        return sm.refine((left_bgr, right_bgr), (vl, vr), sm.seeds(left_bgr, right_bgr), key,
+                         fine_iterations, refine_start, keep_forests=reuse_forest)
 
-        def refine(left_bgr, right_bgr, pdl, pdr, fl, fr, k):
-            _, _, vl, vr = volumes(left_bgr, right_bgr)
-            kl, kr = trandom.split(k)
-            dl = _refine_view_given_forest(fl, vl, torch.clamp(pdl, 0.0, top), kl, cfg, h, w,
-                                           tmax, ti, trs, max_neighbors)
-            dr = _refine_view_given_forest(fr, vr, torch.clamp(pdr, 0.0, top), kr, cfg, h, w,
-                                           tmax, ti, trs, max_neighbors)
-            return dl, dr
-    else:
-        def keyframe(left_bgr, right_bgr, key):
-            left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
-            return _sgbm_mst_frame_fused(
-                left_bgr, right_bgr, vl, vr, key, cfg, sgbm_cfg, fine_iterations,
-                refine_start, max_neighbors, h, w, tmax, adj_cap, right_seed,
-            )
-
-        def refine(left_bgr, right_bgr, prev_dl, prev_dr, key):
-            left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
-            return _mst_refine_frame_fused(
-                left_bgr, right_bgr, vl, vr, torch.clamp(prev_dl, 0.0, top),
-                torch.clamp(prev_dr, 0.0, top), key, cfg, ti, trs, max_neighbors,
-                h, w, tmax, adj_cap,
-            )
+    def temporal(left_bgr, right_bgr, prev_l, prev_r, *forests_and_key):
+        *forests, key = forests_and_key
+        left_bgr, right_bgr, vl, vr = volumes(left_bgr, right_bgr)
+        return sm.refine((left_bgr, right_bgr), (vl, vr), (prev_l, prev_r), key, ti, trs,
+                         forests=forests or None)
 
     return VideoStreamServer(
-        keyframe, refine, device, capacity=capacity, reseed_every=reseed_every,
+        keyframe, temporal, device, capacity=capacity, reseed_every=reseed_every,
         retries=retries, retry_backoff_s=retry_backoff_s, reuse_forest=reuse_forest,
-        scene_cut_ratio=scene_cut_ratio, lr_stat=_make_lr_stat(cfg.max_disp),
+        scene_cut_ratio=scene_cut_ratio, lr_stat=_make_lr_stat(sm.cfg.max_disp),
     )

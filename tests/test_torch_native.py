@@ -8,6 +8,7 @@ masks of forest_arrays. w_exp / rel_gd are copied, held within 1e-6."""
 
 import dataclasses
 import pathlib
+import subprocess
 import threading
 
 import jax
@@ -108,20 +109,19 @@ def test_forest_from_labels_equals_jax(rng):
         _assert_forests_equal(t, j)
 
 
-def test_fallback_warns_and_equals_jax_fallback(monkeypatch):
-    """With no loadable library the port falls back to its Boruvka forest
-    with a RuntimeWarning; that forest equals the JAX package's fallback
-    (the Boruvka labels agree exactly)."""
+@pytest.mark.parametrize("exc", [OSError("no g++"),
+                                 subprocess.CalledProcessError(1, ["g++"])])
+def test_failed_native_build_raises(monkeypatch, exc):
+    """With no buildable or loadable library the host forest raises, naming
+    g++ and native/build.py: there is no second builder to fall back to."""
     wr, wd = _scene_weights(36, 48, seed=2)
 
     def broken():
-        raise OSError("no g++")
+        raise exc
 
     monkeypatch.setattr(tnative, "_load", broken)
-    with pytest.warns(RuntimeWarning, match="native forest builder unavailable"):
-        t = tnative.build_forest(wr, wd, 800.0, 20, GAMMA, 4.0)
-    j = jpyforest.build_forest_fallback(wr, wd, 800.0, 20, GAMMA, 4.0)
-    _assert_forests_equal(t, j)
+    with pytest.raises(RuntimeError, match=r"native/build\.py.*g\+\+"):
+        tnative.build_forest(wr, wd, 800.0, 20, GAMMA, 4.0)
 
 
 def test_native_forest_from_numpy_roundtrip():
