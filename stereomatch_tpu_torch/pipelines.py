@@ -48,12 +48,34 @@ def to_bgr255(img, device: torch.device | str = "cuda") -> torch.Tensor:
 
 def _gray255(img, device: torch.device | str = "cuda") -> torch.Tensor:
     """Gray or RGB host image -> (H, W) float32 gray in [0, 255] on
-    `device` (RGB: BT.601 luma, computed on the host as the JAX package
-    does)."""
-    arr = np.asarray(img).astype(np.float32)
-    if arr.ndim == 3:
-        arr = 0.299 * arr[..., 0] + 0.587 * arr[..., 1] + 0.114 * arr[..., 2]
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    `device`. RGB takes the BT.601 luma of the JAX package's numpy,
+    (0.299 R + 0.587 G) + 0.114 B with each product and sum rounded to
+    float32, computed on `device` and bit-equal to it.
+
+    The image is uploaded as it is handed in: uint8 or float32 (other
+    dtypes are cast to float32 on the host), and an RGB view of a
+    C-contiguous BGR buffer (`bgr[..., ::-1]`) as that buffer, its
+    channels read in reverse on `device`. Any other layout, or a read-only
+    array, takes one host copy; `_gray255.host_copies` counts them."""
+    arr = np.asarray(img)
+    if arr.dtype not in (np.uint8, np.float32):
+        arr = arr.astype(np.float32)
+    rgb = (0, 1, 2)
+    if arr.ndim == 3 and not arr.flags.c_contiguous and arr[..., ::-1].flags.c_contiguous:
+        c = arr.shape[-1]
+        arr, rgb = arr[..., ::-1], (c - 1, c - 2, c - 3)
+    if not (arr.flags.c_contiguous and arr.flags.writeable):
+        arr = np.array(arr, order="C")
+        _gray255.host_copies += 1
+    # copy=True: on the CPU the result never aliases the caller's array
+    x = torch.from_numpy(arr).to(device, copy=True).float()
+    if x.ndim == 3:
+        # separate multiplies and adds, none fused into an FMA
+        x = (0.299 * x[..., rgb[0]] + 0.587 * x[..., rgb[1]]) + 0.114 * x[..., rgb[2]]
+    return x
+
+
+_gray255.host_copies = 0
 
 
 def _filter_speckles(disp: torch.Tensor, cfg) -> torch.Tensor:
