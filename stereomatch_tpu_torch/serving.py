@@ -364,12 +364,14 @@ class VideoStreamServer(StereoStreamServer):
             self._since_key = 1
         else:
             fargs = self._prev_forest if self.reuse_forest else ()
-            t = self.submit(
-                left_bgr, right_bgr, *self._prev, *fargs, key,
-                _pipeline=self.refine_pipeline,
-                _replay_args=(left_bgr, right_bgr, key),
-                _replay_post=partial(self._capture_forest, ticket=i) if self.reuse_forest else None,
-            )
+            with span("sm.server.temporal"):
+                t = self.submit(
+                    left_bgr, right_bgr, *self._prev, *fargs, key,
+                    _pipeline=self.refine_pipeline,
+                    _replay_args=(left_bgr, right_bgr, key),
+                    _replay_post=(partial(self._capture_forest, ticket=i)
+                                  if self.reuse_forest else None),
+                )
             self._since_key += 1
         p = self._queue[-1]
         p.is_key = keyframe

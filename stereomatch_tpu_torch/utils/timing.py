@@ -34,6 +34,7 @@ SPANS = frozenset({
     "sm.server.submit",  # a served frame's submit_pair: key, upload, enqueue
     "sm.server.collect",  # a served frame's outputs to the host, LR stat, failure replay
     "sm.server.scene_cut",  # the video server's keyframe replay of a scene cut
+    "sm.server.temporal",  # a video temporal frame's enqueue, inside sm.server.submit
     "sm.volume",  # a served frame's cost volumes
     "sm.volume.guided",  # the guided filter of both views' volumes (builtin_cost_volumes)
     "sm.sgbm",  # the SGBM seed of a 3DMST frame; the whole of sgbm_pipeline

@@ -176,7 +176,8 @@ def test_guided_pair_frames_open_the_guided_span_once_a_frame():
 
 def test_video_keyframe_builds_forests_and_the_temporal_frame_none():
     """reuse_forest: the keyframe opens two sm.forest spans, the temporal
-    frame none; sm.refine.iter counts each view's iterations."""
+    frame none; sm.refine.iter counts each view's iterations; only the
+    temporal frame opens sm.server.temporal."""
     seq = render_sequence(2, 2, H, W, D, drift=1.0)
     srv = compile_mst_video_server(H, W, temporal_iterations=2, reuse_forest=True, **KW)
     counts = []
@@ -184,12 +185,49 @@ def test_video_keyframe_builds_forests_and_the_temporal_frame_none():
         prof, _ = _traced(lambda sc=sc: srv.collect(srv.submit_pair(sc.left, sc.right)))
         names = _names(prof)
         counts.append({n: names.count(n) for n in ("sm.forest", "sm.forest.round", "sm.sgbm",
-                                                   "sm.refine", "sm.refine.iter")})
+                                                   "sm.refine", "sm.refine.iter",
+                                                   "sm.server.temporal")})
     key, temporal = counts
     assert key["sm.forest"] == 2 and key["sm.sgbm"] == 1 and key["sm.forest.round"] > 0
     assert key["sm.refine"] == 2 and key["sm.refine.iter"] == 2 * 3
+    assert key["sm.server.temporal"] == 0
     assert temporal == {"sm.forest": 0, "sm.forest.round": 0, "sm.sgbm": 0, "sm.refine": 2,
-                        "sm.refine.iter": 2 * 2}
+                        "sm.refine.iter": 2 * 2, "sm.server.temporal": 1}
+
+
+def test_video_temporal_frames_open_the_temporal_span():
+    """The video server as it ships (guided volume, no reuse_forest), a
+    keyframe and a temporal frame in flight together: one
+    `sm.server.temporal` on the temporal frame, none on the keyframe, inside
+    the frame's `sm.server.submit` and holding both views' `sm.forest`
+    (with reuse_forest it holds none: the test above). Spans are read from
+    the profiler's raw events, by time: the event tree costs seconds to
+    build."""
+    seq = render_sequence(5, 2, H, W, D, drift=1.0)
+    srv = compile_mst_video_server(H, W, temporal_iterations=1, reseed_every=3,
+                                   **dict(KW, volume_guided=True, fine_iterations=1))
+
+    def serve():
+        tickets = [srv.submit_pair(sc.left, sc.right) for sc in seq]
+        for t in tickets:
+            srv.collect(t)
+
+    prof, _ = _traced(serve)
+    raw = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in raw if e.name().startswith("sm."))
+
+    def named(name):
+        return [(s, e) for s, e, n in spans if n == name]
+
+    def within(outer, name):
+        return [(s, e) for s, e in named(name) if outer[0] <= s and e <= outer[1]]
+
+    submits, temporal = named("sm.server.submit"), named("sm.server.temporal")
+    assert len(submits) == 2 and len(temporal) == 1
+    assert [len(within(s, "sm.server.temporal")) for s in submits] == [0, 1]
+    assert len(within(submits[0], "sm.forest")) == 2  # the keyframe builds both
+    assert len(within(temporal[0], "sm.forest")) == 2
+    assert len(within(temporal[0], "sm.refine")) == 2
 
 
 def test_scene_cut_replay_is_its_own_span():
